@@ -20,10 +20,33 @@ of which raises on failure (so the exit code is non-zero):
                  generator and seed) through AuctionSolver(mode="hybrid",
                  device="cuda"), cold and then cached, held against the
                  port's own mode="cpu" solve: |obj - obj_cpu| <= n * eps_min
+  6. gs       -- K3 (ops.gs_auction_device) on the headline's tail: the
+                 square hybrid's device pass is rebuilt from the package's
+                 functions, owner derived, the unassigned rows with entries
+                 queued ascending (the native engine's order).  K3 against
+                 its twin for the first 20,000 bids (exact), then K3 and the
+                 native forward auction_gs on that state to the end (or
+                 both to one cap, if K3 would need more than 60 s): prices
+                 bit for bit, owner and bid counts equal
+  7. rect     -- the 100k x 200k, 10 nnz/row rectangular sweep row
+                 (benchmarks/run_all.py:make_sparse, integer costs < 10,000,
+                 seed 11) through mode="hybrid" on the card and mode="cpu".
+                 Scaled by m + 1 these costs exceed the exact int32 range,
+                 so ingest gives them float64, which only mode="cpu" takes
+                 (as in the reference): the device solve runs them as
+                 float32 and is held to the eps-optimality bound m *
+                 eps_min against the exact mode="cpu" objective (equality
+                 is reported)
+  8. jacobi   -- CUDA against CPU, bit for bit: the rectangular hybrid at
+                 10k x 20k (int32), mode="device" at 10k x 10k (float32)
+                 and at 10k x 20k (int32, capped at 1,000 rounds: the
+                 full-width rectangular solve can spend its whole
+                 max_iter, 50 n + 2000 rounds, there)
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
-counted during the cold headline solve, and its time and its twin's time at
-C = 1M, float32.  The last line is {"ok": true, "device": {...}}.
+counted on its path (K1, K2: the cold headline solve; K3: the tail run),
+and its time and its twin's time (K1, K2: C = 1M, float32; K3: the first
+20,000 bids of the tail).  The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -36,10 +59,12 @@ import time
 import numpy as np
 import torch
 
-from sslap_tpu_torch import AuctionSolver
+from sslap_tpu_torch import AuctionSolver, _native
+from sslap_tpu_torch import auction as A
+from sslap_tpu_torch import compact as C
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_plain, commit, \
-    commit_plain
+    commit_plain, gs_auction_device, gs_auction_plain
 
 N_HEAD = 1_000_000
 K_HEAD = 10
@@ -53,7 +78,12 @@ KERNELS = {
     "commit": {"route": "cuda",
                "source": "sslap_tpu_torch/ops/csrc/commit.cu",
                "replaces": "sslap_tpu/ops/commit.py:26"},
+    "gs_auction_device": {"route": "cuda",
+                          "source": "sslap_tpu_torch/ops/csrc/gs.cu",
+                          "replaces": "sslap_tpu/ops/gs_kernel.py:64"},
 }
+GS_TWIN_BIDS = 20_000         # what the twin's per-bid Python loop runs
+GS_MAX_SECONDS = 60.0         # above this, K3 and native stop at one cap
 
 
 def log(*args) -> None:
@@ -74,6 +104,25 @@ def make_instance(n, m, k_extra, seed=0, low=1.0, high=1000.0):
     rr, cc = rr[idx], cc[idx]
     vv = (rng.random(rr.shape[0]) * (high - low) + low).astype(np.float32)
     return rr, cc, vv
+
+
+def make_sparse(n, m, nnz_per_row, seed=0, high=1000):
+    """Copy of benchmarks/run_all.py:make_sparse with integer=True
+    (benchmarks/ imports jax): nnz_per_row - 1 random columns per row plus
+    a planted matching, deduplicated by the sorted fused key."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), nnz_per_row - 1)
+    cols = rng.integers(0, m, rows.shape[0], dtype=np.int64)
+    perm = rng.permutation(m)[:n].astype(np.int64)
+    key = np.concatenate([rows * m + cols,
+                          np.arange(n, dtype=np.int64) * m + perm])
+    key.sort()
+    keep = np.empty(key.shape[0], bool)
+    keep[0] = True
+    np.not_equal(key[1:], key[:-1], out=keep[1:])
+    key = key[keep]
+    loc = np.stack([key // m, key % m], 1)
+    return loc, rng.integers(1, high, loc.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -406,7 +455,216 @@ def phase_headline(n=N_HEAD):
     if not (cpu["meta"]["soln_found"] and gap <= bound):
         raise AssertionError("headline objective disagrees with mode='cpu'")
     log(f"[5 headline] launches during the cold solve: {launches}")
-    return launches
+    return launches, solver
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: K3 on the headline's tail
+# ---------------------------------------------------------------------------
+
+
+def _events_ms(fn):
+    """(result, ms) of one call, CUDA events around it."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def headline_device_pass(solver):
+    """The square hybrid's device pass on the headline, as
+    hybrid.solve_hybrid calls compact.solve_tiered (same schedule, ladder,
+    trunc, wide loop; the solver's cached problem data): the state the host
+    finisher starts from."""
+    prob = solver.problem_spec
+    cache = solver._device_cache
+    cols_d, vals_d, nvalid_d = cache["ell"]
+    indptr, indices, data = cache["csr"]
+    n, m = prob.n, prob.m
+    dtype = prob.vals.dtype
+    vmax_abs = float(np.abs(prob.vals[prob.valid]).max())
+    tr = A.make_transform("min", m, dtype, vmax_abs)
+    e0, e_min, theta = A.default_eps_schedule(
+        dtype, vmax_abs, m, tr.scale, theta=A.device_theta_default(n))
+    bigp = (data.max() - data.min()) + 1.0
+    trunc = min(256, max(n // 8, 1))
+    res, _ = C.solve_tiered(
+        cols_d, vals_d, nvalid_d, torch.zeros(m, device=cols_d.device),
+        e0, e_min, theta, A.default_max_iter(n), bigp=bigp,
+        tiers=C.default_tiers(n, fine=True, floor=trunc), trunc=trunc,
+        theta_tail=np.float32(3.0), tail_phases=2,
+        wide=cache.get("wide", False))
+    return res, e_min, bigp, (indptr, indices, data), (cols_d, vals_d,
+                                                       nvalid_d)
+
+
+def phase_gs(solver, cold_its):
+    """K3 against its twin, then K3 against the native forward GS, on the
+    headline's tail state.  Returns (max abs error vs the twin, K3 ms and
+    twin ms over the first GS_TWIN_BIDS bids, launches in the tail run)."""
+    t0 = time.perf_counter()
+    res, e_min, bigp, csr, (cols_d, vals_d, nvalid_d) = \
+        headline_device_pass(solver)
+    torch.cuda.synchronize()
+    if res.rounds != cold_its:
+        raise AssertionError(f"rebuilt device pass ran {res.rounds} rounds, "
+                             f"the cold solve {cold_its}")
+    n = res.sigma.shape[0]
+    m = res.prices.shape[0]
+    dev = res.sigma.device
+    sigma, prices = res.sigma, res.prices
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    owner = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    assigned = sigma >= 0
+    owner[sigma[assigned].long()] = rows[assigned]
+    pending = rows[(sigma < 0) & (nvalid_d > 0)]          # ascending
+    queue = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    queue[:pending.shape[0]] = pending
+    eps = np.float32(e_min)
+    state = (cols_d, vals_d, queue, pending.shape[0], prices, owner, eps,
+             bigp)
+    log(f"[6 gs] headline device pass rebuilt: {res.rounds} rounds, "
+        f"{pending.shape[0]} rows queued, eps {eps!r}, bigp {bigp!r} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    got, k3_ms = _events_ms(lambda: gs_auction_device(*state, GS_TWIN_BIDS))
+    want, twin_ms = _events_ms(lambda: gs_auction_plain(*state,
+                                                        GS_TWIN_BIDS))
+    if not (_same_bits(got[0], want[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+            and int(got[3]) == GS_TWIN_BIDS):
+        raise AssertionError("gs_auction_device differs from its twin")
+    err = _abs_err(got[0], want[0])
+    us_per_bid = 1e3 * k3_ms / GS_TWIN_BIDS
+    log(f"[6 gs] first {GS_TWIN_BIDS} bids: K3 {k3_ms:.3f} ms "
+        f"({us_per_bid:.3f} us/bid), twin {twin_ms:.3f} ms "
+        f"({1e3 * twin_ms / GS_TWIN_BIDS:.3f} us/bid); exact")
+
+    def native(max_bids):
+        p = prices.cpu().numpy().copy()
+        s = sigma.cpu().numpy().copy()
+        o = owner.cpu().numpy().copy()
+        t = time.perf_counter()
+        bids = _native.auction_gs(*csr, p, s, o, e_min, bigp, 0, max_bids)
+        return p, o, bids, time.perf_counter() - t
+
+    budget = 100 * n + 10_000_000          # the hybrid's finisher budget
+    p_nat, o_nat, nat_bids, nat_s = native(budget)
+    if nat_bids < 0:
+        raise AssertionError("native GS exhausted its budget on the tail")
+    cap = budget
+    if nat_bids * us_per_bid * 1e-6 > GS_MAX_SECONDS:
+        cap = int(GS_MAX_SECONDS * 1e6 / us_per_bid)
+        log(f"[6 gs] native ran {nat_bids} bids in {nat_s:.3f} s; K3 would "
+            f"need ~{nat_bids * us_per_bid * 1e-6:.0f} s: both capped at "
+            f"{cap} bids")
+        p_nat, o_nat, nat_bids, nat_s = native(cap)
+        nat_bids = cap if nat_bids == -1 else nat_bids
+    gs_auction_device.launches = 0
+    t = time.perf_counter()
+    out, k3_full_ms = _events_ms(lambda: gs_auction_device(*state, cap))
+    k3_s = time.perf_counter() - t
+    launches = gs_auction_device.launches
+    k3_bids, left = int(out[3]), int(out[4])
+    if not (k3_bids == nat_bids and (left == 0) == (cap == budget)
+            and np.array_equal(out[0].cpu().numpy().view(np.int32),
+                               p_nat.view(np.int32))
+            and np.array_equal(out[1].cpu().numpy(), o_nat)):
+        raise AssertionError(f"K3 differs from the native GS on the tail "
+                             f"(bids {k3_bids} vs {nat_bids}, left {left})")
+    if launches != 1:
+        raise AssertionError(f"K3 launched {launches} times on the tail")
+    log(f"[6 gs] tail: K3 {k3_bids} bids in {k3_s:.3f} s (events "
+        f"{k3_full_ms:.1f} ms, {1e3 * k3_full_ms / k3_bids:.3f} us/bid), "
+        f"native forward GS {nat_s:.3f} s ({1e6 * nat_s / nat_bids:.3f} "
+        f"us/bid); rows left {left}; prices bitwise, owner and bids equal")
+    return err, k3_ms, twin_ms, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8: the rectangular hybrid and the Jacobi device path
+# ---------------------------------------------------------------------------
+
+
+def _meta_line(m):
+    return (f"its {m['its']}, host_bids {m.get('host_bids')}, phases "
+            f"{m['phases']}, obj {m['obj']!r}, final_eps {m['final_eps']!r}")
+
+
+def phase_rect(n=100_000, m=200_000):
+    loc, val = make_sparse(n, m, 10, seed=11, high=10_000)
+    kw = dict(loc=loc, val=val, shape=(n, m))
+    bid_topk.launches = commit.launches = 0
+    t0 = time.perf_counter()
+    hy = AuctionSolver(mode="hybrid", device=DEVICE, dtype=np.float32,
+                       **kw).solve()
+    hy_s = time.perf_counter() - t0
+    launches = (bid_topk.launches, commit.launches)
+    log(f"[7 rect] {n}x{m}, nnz {loc.shape[0]}: hybrid on the card "
+        f"(float32) {hy_s:.3f} s; {_meta_line(hy['meta'])}; launches "
+        f"K1 {launches[0]}, K2 {launches[1]}")
+    t0 = time.perf_counter()
+    ex = AuctionSolver(mode="cpu", **kw).solve()
+    ex_s = time.perf_counter() - t0
+    log(f"[7 rect] mode='cpu' (exact, float64) {ex_s:.3f} s; "
+        f"{_meta_line(ex['meta'])}")
+    t0 = time.perf_counter()
+    cf = AuctionSolver(mode="cpu", dtype=np.float32, **kw).solve()
+    cf_s = time.perf_counter() - t0
+    log(f"[7 rect] mode='cpu' (float32) {cf_s:.3f} s; "
+        f"{_meta_line(cf['meta'])}")
+    if not (hy["meta"]["soln_found"] and ex["meta"]["soln_found"]
+            and cf["meta"]["soln_found"]):
+        raise AssertionError("a rectangular solve found no solution")
+    if min(launches) <= 0 or launches[0] != hy["meta"]["its"]:
+        raise AssertionError(f"rect hybrid launches {launches}, its "
+                             f"{hy['meta']['its']}")
+    gap = abs(hy["meta"]["obj"] - ex["meta"]["obj"])
+    bound = m * hy["meta"]["final_eps"]
+    log(f"[7 rect] |obj_hybrid - obj_exact| = {gap!r} <= m * eps_min = "
+        f"{bound!r}: {gap <= bound}; equal: {gap == 0}")
+    if gap > bound:
+        raise AssertionError("rectangular hybrid objective out of bound")
+
+
+def _parity(name, loc, val, shape, **kw):
+    bid_topk.launches = commit.launches = 0
+    t0 = time.perf_counter()
+    g = AuctionSolver(loc=loc, val=val, shape=shape, device=DEVICE,
+                      **kw).solve()
+    g_s = time.perf_counter() - t0
+    launches = (bid_topk.launches, commit.launches)
+    t0 = time.perf_counter()
+    c = AuctionSolver(loc=loc, val=val, shape=shape, device="cpu",
+                      **kw).solve()
+    c_s = time.perf_counter() - t0
+    gm, cm = g["meta"], c["meta"]
+    if not (np.array_equal(g["sol"], c["sol"])
+            and np.array_equal(g["prices"].view(np.int32),
+                               c["prices"].view(np.int32))
+            and all(gm.get(k) == cm.get(k) for k in (
+                "its", "phases", "host_bids", "final_eps", "unassigned",
+                "obj"))):
+        raise AssertionError(f"port on CUDA != port on CPU ({name})")
+    if min(launches) <= 0 or launches[0] != gm["its"]:
+        raise AssertionError(f"{name}: launches {launches}, its {gm['its']}")
+    log(f"[8 jacobi] {name}: CUDA {g_s:.3f} s == CPU {c_s:.3f} s (sol, "
+        f"prices bitwise, {_meta_line(gm)}); launches K1 {launches[0]}, "
+        f"K2 {launches[1]}")
+
+
+def phase_jacobi():
+    loc, val = make_sparse(10_000, 20_000, 10, seed=12, high=3000)
+    _parity("rect hybrid 10000x20000 int32", loc, val, (10_000, 20_000),
+            mode="hybrid")
+    _parity("mode='device' 10000x20000 int32, max_iter 1000", loc, val,
+            (10_000, 20_000), mode="device", max_iter=1000)
+    rr, cc, vv = make_instance(10_000, 10_000, 9, seed=3)
+    _parity("mode='device' 10000x10000 float32", np.stack([rr, cc], 1), vv,
+            (10_000, 10_000), mode="device")
 
 
 def main() -> None:
@@ -414,7 +672,13 @@ def main() -> None:
     phase_build()
     errs, times = phase_kernels()
     phase_parity()
-    launches = phase_headline()
+    launches, solver = phase_headline()
+    name = "gs_auction_device"
+    errs[name], times[name], times[name + "_plain"], launches[name] = \
+        phase_gs(solver, solver.meta["its"])
+    del solver
+    phase_rect()
+    phase_jacobi()
     kernels = [dict(name=name, **KERNELS[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[name],
                     plain_ms=times[name + "_plain"])

@@ -1,10 +1,12 @@
 """sslap_tpu_torch: the PyTorch + CUDA port of sslap_tpu (sparse linear
 assignment by the auction algorithm with epsilon-scaling).
 
-First slice: the square hybrid solve (device rounds through the
-hand-written Hopper kernels in ``ops/``, then the shared native C++ host
-finisher) and the native CPU mode.  ``sslap_tpu`` (JAX) stays the
-reference; this package imports torch and numpy, never jax.
+Ported so far: the square and rectangular hybrid solves (device rounds
+through the hand-written Hopper kernels in ``ops/``, then the shared native
+C++ host finisher), the pure device mode, the native CPU mode,
+``hopcroft_solve``, ``linear_sum_assignment`` and the device Gauss-Seidel
+op ``gs_auction_device``.  ``sslap_tpu`` (JAX) stays the reference; this
+package imports torch and numpy, never jax.
 """
 
 from sslap_tpu_torch.api import (
@@ -12,9 +14,12 @@ from sslap_tpu_torch.api import (
     AuctionSolver,
     InfeasibleError,
     auction_solve,
+    hopcroft_solve,
+    linear_sum_assignment,
 )
 from sslap_tpu_torch.config import AuctionConfig
 from sslap_tpu_torch.ingest import ELLProblem, from_coo, from_csr, from_dense
+from sslap_tpu_torch.ops import gs_auction_device
 
 __all__ = [
     "AuctionConfig",
@@ -26,4 +31,7 @@ __all__ = [
     "from_coo",
     "from_csr",
     "from_dense",
+    "gs_auction_device",
+    "hopcroft_solve",
+    "linear_sum_assignment",
 ]

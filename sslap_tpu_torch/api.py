@@ -1,8 +1,10 @@
-"""Public API: auction_solve / AuctionSolver.  Counterpart of
-``sslap_tpu/api.py`` for the modes the port carries: 'hybrid' (device
-bulk on ``device`` + native host tail, square problems), 'cpu' (native
-Gauss-Seidel) and 'auto' (the reference's routing between those two).
-The other modes and engines raise NotImplementedError (ROADMAP.md).
+"""Public API: auction_solve / AuctionSolver, hopcroft_solve and the
+scipy-style linear_sum_assignment.  Counterpart of ``sslap_tpu/api.py``
+for the modes the port carries: 'hybrid' (device bulk on ``device`` +
+native host tail; square and rectangular), 'device' (the whole eps-scaled
+Jacobi auction on ``device``), 'cpu' (native Gauss-Seidel) and 'auto' (the
+reference's routing).  The sharded modes and the 'candidates' and 'dense'
+engines raise NotImplementedError (ROADMAP.md).
 
 Returns a dict-like ``AuctionSolution`` with 'sol' (row -> col), 'meta'
 (objective, rounds, phases, final eps, solution-found flag, timing) and
@@ -16,8 +18,10 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from sslap_tpu_torch import auction as _auction
+from sslap_tpu_torch import compact as _compact
 from sslap_tpu_torch import feasibility as _feas
 from sslap_tpu_torch import hybrid as _hybrid
 from sslap_tpu_torch import ingest as _ingest
@@ -92,9 +96,9 @@ class AuctionSolver:
     """Construct-once solver over an ingested problem; holds the prices of
     the last solve and the device-resident problem data for re-solves.
 
-    ``device``: where the hybrid's device pass runs ("cuda" by default;
-    "cpu" runs the kernels' plain twins).  A CUDA failure raises: there is
-    no fallback to the CPU path."""
+    ``device``: where the device rounds of modes 'hybrid' and 'device' run
+    ("cuda" by default; "cpu" runs the kernels' plain twins).  A CUDA
+    failure raises: there is no fallback to the CPU path."""
 
     def __init__(self, mat=None, *, loc=None, val=None,
                  shape: Optional[Tuple[int, int]] = None, problem=_UNSET,
@@ -119,7 +123,7 @@ class AuctionSolver:
             raise ValueError(f"unknown gs_engine {kw['gs_engine']!r}")
         if kw["mode"] not in MODES:
             raise ValueError(f"unknown mode {kw['mode']!r}")
-        if kw["mode"] not in ("auto", "hybrid", "cpu"):
+        if kw["mode"] not in ("auto", "device", "hybrid", "cpu"):
             raise _not_ported(f"mode={kw['mode']!r}")
         if kw["engine"] not in ENGINES:
             raise ValueError(f"unknown engine {kw['engine']!r}")
@@ -161,7 +165,7 @@ class AuctionSolver:
         prob = self.problem_spec
         if prob.vals.dtype == np.float64:
             # float64 rides the host path, as in the reference
-            if self.mode == "hybrid":
+            if self.mode in ("device", "hybrid"):
                 raise ValueError(
                     "float64 costs are solved on the native CPU path; use "
                     "mode='cpu' or 'auto'")
@@ -169,9 +173,7 @@ class AuctionSolver:
         if self.mode != "auto":
             return self.mode
         if not _hybrid.native_available():
-            # the reference's auto picks its pure device mode here
-            raise _not_ported("mode='device' (what mode='auto' picks "
-                              "without the native host runtime)")
+            return "device"     # as the reference: no slow numpy GS
         if prob.n == prob.m and prob.n >= AUTO_HYBRID_MIN_ROWS:
             return "hybrid"
         return "cpu"
@@ -216,6 +218,8 @@ class AuctionSolver:
                 "(detected by Hopcroft-Karp cardinality check; pass "
                 "cardinality_check=False to attempt anyway)")
         mode = self._resolve_mode()
+        if mode == "device":
+            return self._solve_device(prob, warm_prices, t0)
         self._check_engine(mode, warm=warm_prices is not None)
         n_empty = int((prob.nvalid == 0).sum())
         sol, prices, hmeta = _hybrid.solve_hybrid(
@@ -236,6 +240,61 @@ class AuctionSolver:
                          time=time.perf_counter() - t0)
         return AuctionSolution(sol=sol, meta=self.meta, prices=self.prices)
 
+    def _solve_device(self, prob: ELLProblem, warm_prices, t0
+                      ) -> AuctionSolution:
+        """mode='device': square problems that keep the assignment take the
+        tiered compacted solve (no truncation), the rest the full-width
+        Jacobi solve, whose keep_assignment=False resets every phase
+        (the tiered phase start IS the warm-started violator scan).
+        warm_mode='fr' applies to 'hybrid'/'cpu' only, as in the
+        reference."""
+        dev = torch.device(self.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but no CUDA device "
+                               "is available")
+        vals, valid = prob.vals, prob.valid
+        vmax_abs = float(np.abs(vals[valid]).max()) if valid.any() else 0.0
+        tr = _auction.make_transform(self.problem, prob.m, vals.dtype,
+                                     vmax_abs, int_exact=prob.int_exact)
+        theta = (self.theta if self.theta is not None
+                 else _auction.device_theta_default(prob.n))
+        e0, e_min, theta = _auction.default_eps_schedule(
+            vals.dtype, vmax_abs, prob.m, tr.scale, eps_min=self.eps_min,
+            eps_start=self.eps_start, theta=theta, int_exact=prob.int_exact)
+        max_iter = (self.max_iter if self.max_iter is not None
+                    else _auction.default_max_iter(prob.n))
+        p0 = (np.zeros(prob.m, vals.dtype) if warm_prices is None
+              else np.asarray(warm_prices).astype(vals.dtype))
+        cols, vals_t, valid_d, nvalid, p0 = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (prob.cols, tr.apply(vals), valid, prob.nvalid, p0))
+        if prob.n == prob.m and self.keep_assignment:
+            res, _ = _compact.solve_ell_tiered(cols, vals_t, valid_d, nvalid,
+                                               p0, e0, e_min, theta,
+                                               max_iter)
+        else:
+            res = _auction.solve_ell(cols, vals_t, valid_d, nvalid, p0, e0,
+                                     e_min, theta, max_iter,
+                                     keep_assignment=self.keep_assignment)
+        sol = res.sigma.cpu().numpy()
+        t1 = time.perf_counter()
+        # the solve's count leaves out rows with no entries: they are
+        # unassignable, so they are folded back in here
+        unassigned = res.unassigned + int((prob.nvalid == 0).sum())
+        soln_found = unassigned == 0
+        self.prices = res.prices.cpu().numpy()
+        self.meta = {
+            "obj": _objective_host(prob, sol) if soln_found else None,
+            "its": int(res.rounds),
+            "phases": int(res.phases),
+            "soln_found": soln_found,
+            "final_eps": float(res.final_eps) / tr.scale,
+            "unassigned": unassigned,
+            "time": t1 - t0,
+            "mode": "device",
+        }
+        return AuctionSolution(sol=sol, meta=self.meta, prices=self.prices)
+
 
 def auction_solve(mat=None, *, loc=None, val=None,
                   shape: Optional[Tuple[int, int]] = None, problem=_UNSET,
@@ -253,3 +312,48 @@ def auction_solve(mat=None, *, loc=None, val=None,
         keep_assignment=keep_assignment, engine=engine, config=config,
         device=device)
     return solver.solve()
+
+
+def hopcroft_solve(mat=None, *, loc=None, val=None,
+                   shape: Optional[Tuple[int, int]] = None,
+                   warm=None) -> np.ndarray:
+    """Maximum bipartite matching of the sparsity pattern (values ignored)
+    by Hopcroft-Karp on the host (the native matcher shared with the
+    reference).  ``warm`` (int [n], col per row, -1 unmatched) seeds the
+    augmentation; edges absent from the pattern and duplicate columns are
+    dropped first, so a stale matching is safe.
+
+    Returns int64 [n]: matched column per row, -1 if unmatched."""
+    if mat is not None:
+        prob = _ingest.from_dense(mat)
+    else:
+        if loc is None:
+            raise ValueError("pass mat= or loc= (val optional for matching)")
+        if val is None:
+            val = np.zeros(np.asarray(loc).shape[0], np.int32)
+        prob = _ingest.from_coo(loc, val, shape=shape,
+                                require_nonnegative=False)
+    init = None
+    if warm is not None:
+        init = _feas.sanitize_matching(prob, np.asarray(warm))
+    match_row, _, _ = _feas.hopcroft_karp(prob, init_match=init)
+    return match_row.astype(np.int64)
+
+
+def linear_sum_assignment(cost, maximize: bool = False, device="cuda"):
+    """scipy-compatible adapter: (row_ind, col_ind) for a dense cost matrix
+    whose entries are all valid; negative costs are shifted internally, as
+    scipy allows them.  Tall matrices (rows > cols) are solved transposed:
+    the index arrays then have length ``cols``, row_ind sorted.
+    ``device`` as for auction_solve."""
+    cost = np.asarray(cost, np.float64)
+    shift = min(0.0, float(cost.min())) if cost.size else 0.0
+    problem = "max" if maximize else "min"
+    n, m = cost.shape
+    if n > m:
+        col_to_row = auction_solve(cost.T - shift, problem=problem,
+                                   device=device)["sol"]
+        order = np.argsort(col_to_row, kind="stable")
+        return col_to_row[order], order
+    sol = auction_solve(cost - shift, problem=problem, device=device)["sol"]
+    return np.arange(n), sol

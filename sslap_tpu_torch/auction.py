@@ -10,6 +10,11 @@ Jacobi round as torch ops: the oracles that the compacted kernels
 (``ops/bid.py``, ``ops/commit.py``) are held against, and ``resolve_bids``
 is also the resolve step of the commit kernel's plain twin.
 
+``jacobi_round`` is that round as the solver runs it (K1 then K2 over the
+id list of the rows that bid), and with ``dummy_grab_step``,
+``unassign_violators`` and ``solve_ell`` it makes the Jacobi device path:
+``mode='device'`` and the rectangular hybrid's device phases.
+
 Tie-breaks (the determinism contract): a row bids for its highest value,
 lowest column among equals (ELL columns are sorted, argmax takes the first
 maximum); a column goes to the highest bid, lowest row id among equals.
@@ -18,7 +23,7 @@ maximum); a column goes to the highest bid, lowest row id among equals.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -293,3 +298,189 @@ def commit_bids(best, winner, prices, owner, sigma):
     sig[torch.where(has, winner, n).long()] = col_idx
     new_owner = torch.where(has, winner, owner)
     return new_prices, new_owner, sig[:n]
+
+
+def value_bigp(vals_t: torch.Tensor, valid: torch.Tensor):
+    """max(vmax - vmin, 0) + 1 over the valid values, in their dtype: the
+    finite stand-in for a missing second best."""
+    neg = neg_sentinel(vals_t.dtype)
+    vmax = torch.where(valid, vals_t, torch.full_like(vals_t, neg)).max()
+    vmin = torch.where(valid, vals_t, torch.full_like(vals_t, -neg)).min()
+    return (torch.clamp(vmax - vmin, min=0) + 1).item()
+
+
+def mask_vals(vals_t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Padding = neg sentinel, so padded slots never win a top-2."""
+    return torch.where(valid, vals_t,
+                       torch.full_like(vals_t, neg_sentinel(vals_t.dtype)))
+
+
+# ---------------------------------------------------------------------------
+# The Jacobi device path: full-width rounds, implicit dummies, eps scaling
+# ---------------------------------------------------------------------------
+
+
+class AuctionState(NamedTuple):
+    """Carried state of the scaled auction; (prices, owner, sigma, eps) is
+    the whole algorithm state."""
+    prices: torch.Tensor    # [m]
+    owner: torch.Tensor     # [m] int32 row owning column j, -1 free, -2 dummy
+    sigma: torch.Tensor     # [n] int32 column of row i, -1 free
+    eps: np.generic         # solver-dtype scalar
+    rounds: int
+    phases: int
+
+
+class SolveResult(NamedTuple):
+    sigma: torch.Tensor     # [n] int32
+    prices: torch.Tensor    # [m]
+    rounds: int
+    phases: int
+    final_eps: np.generic   # solver-dtype scalar
+    unassigned: int         # biddable rows left unassigned
+
+
+def jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
+                 keys=None):
+    """One full-width Jacobi round: every unassigned row with entries bids
+    (K1 over the id list ``sigma < 0 & nvalid > 0``, pad = n, which are
+    exactly the rows ``compute_bids`` leaves unmasked), then K2 resolves
+    and commits.  ``vals_m``: values with padding = neg sentinel.
+    ``prices``, ``owner`` and ``sigma`` are updated IN PLACE and returned;
+    ``keys`` is K2's [m] scratch on CUDA."""
+    from sslap_tpu_torch.ops import bid_topk, commit
+    n = sigma.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=sigma.device)
+    ids = torch.where((sigma < 0) & (nvalid > 0), rows, n)
+    tgt, bid = bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner, eps,
+                        bigp)
+    commit(ids, tgt, bid, prices, owner, sigma, keys)
+    return prices, owner, sigma
+
+
+# Rectangular (n < m) problems: the (m - n) implicit dummy rows value every
+# column at 0, so the square extension's optimum restricted to the real
+# rows is the rectangular optimum.  All unassigned dummies are alike: one
+# step places them on the u_d cheapest columns at price t + eps, t the
+# (u_d + 1)-th smallest price (ties to the lowest column).  Columns held by
+# dummies carry owner == DUMMY_OWNER.
+
+DUMMY_OWNER = -2
+
+
+def count_unassigned_dummies(owner: torch.Tensor, n_dummy: int):
+    """0-d tensor: dummies not holding a column."""
+    return n_dummy - (owner == DUMMY_OWNER).sum()
+
+
+def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int):
+    """Place every unassigned dummy (the reference's ``dummy_grab_step``):
+    the u_d cheapest columns (stable sort: ties to the lowest column) go to
+    dummies at t + eps, evicting their real owners.  ``prices``,
+    ``owner`` and ``sigma`` are updated IN PLACE; returns them and u_d."""
+    m = prices.shape[0]
+    n = sigma.shape[0]
+    u_d = count_unassigned_dummies(owner, n_dummy)
+    order = torch.sort(prices, stable=True).indices
+    rank = torch.empty(m, dtype=torch.int64, device=prices.device)
+    rank[order] = torch.arange(m, device=prices.device)
+    grab = rank < u_d
+    t = prices[order[u_d.clamp(0, m - 1)]]
+    evict = torch.where(grab & (owner >= 0), owner, n).long()
+    sig = torch.cat([sigma, sigma.new_full((1,), -1)])
+    sig[evict] = -1
+    sigma.copy_(sig[:n])
+    owner.copy_(torch.where(grab, DUMMY_OWNER, owner))
+    prices.copy_(torch.where(grab, t + eps, prices))
+    return prices, owner, sigma, u_d
+
+
+def unassign_violators(cols, vals_t, valid, prices, owner, sigma, eps,
+                       n_dummy: int):
+    """Unassign only the pairs that violate eps-CS at the new ``eps``,
+    keeping the rest as the phase's warm start; with dummies, also free
+    dummy-held columns priced above min(prices) + eps.  ``vals_t`` may be
+    masked or not (only valid slots are read).  ``owner`` and ``sigma``
+    are updated IN PLACE and returned."""
+    m = prices.shape[0]
+    neg = neg_sentinel(vals_t.dtype)
+    w = torch.where(valid, vals_t - prices[cols.long()],
+                    torch.full_like(vals_t, neg))
+    v1 = w.amax(dim=1)
+    cur_hit = (cols == sigma[:, None]) & valid
+    cur = torch.where(cur_hit, w, torch.zeros_like(w)).sum(dim=1)
+    viol = (sigma >= 0) & (cur < v1 - eps)
+    own = torch.cat([owner, owner.new_full((1,), -1)])
+    own[torch.where(viol, sigma, m).long()] = -1
+    sigma.copy_(torch.where(viol, -1, sigma))
+    if n_dummy > 0:
+        # a dummy values column j at -p_j: eps-CS needs p_j <= min(p) + eps
+        viol_d = (own[:m] == DUMMY_OWNER) & (prices > prices.min() + eps)
+        own[:m] = torch.where(viol_d, -1, own[:m])
+    owner.copy_(own[:m])
+    return owner, sigma
+
+
+def count_unassigned(sigma, nvalid):
+    """0-d tensor: rows with entries that hold no column."""
+    return ((sigma < 0) & (nvalid > 0)).sum()
+
+
+def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
+              max_iter, *, n_global: Optional[int] = None, bigp=None,
+              keep_assignment: bool = True, theta_tail=None,
+              tail_phases: int = 2) -> SolveResult:
+    """eps-scaled Jacobi auction over an ELL block on ``p0``'s device (the
+    reference's ``solve_ell``): per phase, full-width rounds (plus the
+    dummy step when m > n_global) until every row with entries and every
+    dummy is placed or ``max_iter`` rounds are spent, then eps descends and
+    only the eps-CS violators are unassigned (``keep_assignment``) or the
+    whole assignment is reset.  ``bigp`` None derives it from the value
+    range in the solver dtype.  Loop control runs on the host: one
+    unassigned count is read back per round."""
+    n = cols.shape[0]
+    m = p0.shape[0]
+    n_dummy = m - (n if n_global is None else n_global)
+    dtype = vals_t.dtype
+    dt = numpy_dtype(dtype).type
+    device = p0.device
+    bigp = dt(value_bigp(vals_t, valid) if bigp is None else bigp)
+    eps_min = dt(eps_min)
+    eps = np.maximum(dt(eps0), eps_min)
+    theta = dt(theta)
+    max_iter = int(max_iter)
+    vals_m = mask_vals(vals_t, valid)
+    keys = (torch.zeros(m, dtype=torch.int64, device=device)
+            if device.type == "cuda" else None)
+    prices = p0.to(dtype, copy=True)
+    owner = torch.full((m,), -1, dtype=torch.int32, device=device)
+    sigma = torch.full((n,), -1, dtype=torch.int32, device=device)
+    rounds = phases = 0
+
+    def left():
+        c = count_unassigned(sigma, nvalid)
+        if n_dummy > 0:
+            c = c + count_unassigned_dummies(owner, n_dummy)
+        return int(c)
+
+    while True:
+        while rounds < max_iter and left() > 0:
+            jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps,
+                         bigp, keys)
+            if n_dummy > 0:
+                dummy_grab_step(prices, owner, sigma, eps, n_dummy)
+            rounds += 1
+        phases += 1
+        if eps <= eps_min or rounds >= max_iter:
+            break
+        eps = _next_eps(eps, theta, eps_min, theta_tail=theta_tail,
+                        tail_phases=tail_phases)
+        if keep_assignment:
+            unassign_violators(cols, vals_t, valid, prices, owner, sigma,
+                               eps, n_dummy)
+        else:
+            sigma.fill_(-1)
+            owner.fill_(-1)
+    return SolveResult(sigma=sigma, prices=prices, rounds=rounds,
+                       phases=phases, final_eps=eps,
+                       unassigned=int(count_unassigned(sigma, nvalid)))

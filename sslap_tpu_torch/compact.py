@@ -31,22 +31,13 @@ only pads), only the ``tier_rounds`` histogram does.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sslap_tpu_torch import auction as _auction
 from sslap_tpu_torch.ops import bid_topk, commit
-
-
-class SolveResult(NamedTuple):
-    sigma: torch.Tensor     # [n] int32
-    prices: torch.Tensor    # [m]
-    rounds: int
-    phases: int
-    final_eps: np.generic   # solver-dtype scalar
-    unassigned: int         # biddable rows left unassigned
 
 
 @dataclasses.dataclass
@@ -95,13 +86,6 @@ def default_tiers(n: int, *, fine: bool = False,
             tiers.append(c)
         c //= 2
     return tuple(tiers)
-
-
-def mask_vals(vals_t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Padding = neg sentinel, so padded slots never win a top-2."""
-    return torch.where(valid, vals_t,
-                       torch.full_like(vals_t,
-                                       _auction.neg_sentinel(vals_t.dtype)))
 
 
 def compact_round(cols, vals_m, nvalid, prices, owner, sigma, ids, eps, bigp,
@@ -246,10 +230,10 @@ def solve_tiered(cols, vals_m, nvalid, p0, eps0, eps_min, theta, max_iter,
                                     tail_phases=tail_phases)
         run_phase(st, first=False)
         done = st.eps <= eps_min or st.rounds >= max_iter
-    unassigned = int(((st.sigma < 0) & (nvalid > 0)).sum())
-    res = SolveResult(sigma=st.sigma, prices=st.prices, rounds=st.rounds,
-                      phases=st.phases, final_eps=st.eps,
-                      unassigned=unassigned)
+    unassigned = int(_auction.count_unassigned(st.sigma, nvalid))
+    res = _auction.SolveResult(sigma=st.sigma, prices=st.prices,
+                               rounds=st.rounds, phases=st.phases,
+                               final_eps=st.eps, unassigned=unassigned)
     return res, st
 
 
@@ -262,12 +246,9 @@ def solve_ell_tiered(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
     padding and, when ``bigp`` is None, derives it from the value range in
     the solver dtype."""
     if bigp is None:
-        neg = _auction.neg_sentinel(vals_t.dtype)
-        vmax = torch.where(valid, vals_t, torch.full_like(vals_t, neg)).max()
-        vmin = torch.where(valid, vals_t, torch.full_like(vals_t, -neg)).min()
-        bigp = (torch.clamp(vmax - vmin, min=0) + 1).item()
-    return solve_tiered(cols, mask_vals(vals_t, valid), nvalid, p0, eps0,
-                        eps_min, theta, max_iter, bigp=bigp, tiers=tiers,
+        bigp = _auction.value_bigp(vals_t, valid)
+    return solve_tiered(cols, _auction.mask_vals(vals_t, valid), nvalid, p0,
+                        eps0, eps_min, theta, max_iter, bigp=bigp, tiers=tiers,
                         trunc=trunc, init_state=init_state,
                         max_phases=max_phases, theta_tail=theta_tail,
                         tail_phases=tail_phases, wide=wide)

@@ -1,5 +1,6 @@
-"""Hybrid device+host auction solve: the square fast path and mode='cpu'.
-Counterpart of ``sslap_tpu/hybrid.py``.
+"""Hybrid device+host auction solve: the square fast path, the
+rectangular per-phase path and mode='cpu'.  Counterpart of
+``sslap_tpu/hybrid.py``.
 
 Square flow (the headline path):
 
@@ -12,9 +13,15 @@ Square flow (the headline path):
       engine ``auction_gs_fr`` by default) finishes the serial eviction
       chains, with the device's bid semantics.
 
+Rectangular (n < m) problems keep the per-phase device/host split with
+implicit dummy rows: per eps phase, full-width Jacobi rounds with the dummy
+step on the device (``_device_phase``: K1/K2 and a torch sort) until <=
+``threshold`` rows and dummies are unplaced, then the native forward GS
+with its dummy price heap finishes the phase on the host.
+
 ``mode='cpu'`` skips the device: a native Gauss-Seidel eps-scaled solve,
-the sslap-class CPU reference.  The rectangular device path and
-``engine='candidates'`` are not ported yet (ROADMAP.md, queue 1).
+the sslap-class CPU reference.  ``engine='candidates'`` is not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -109,6 +116,53 @@ def _wide_layout_ok(cols: np.ndarray, valid: np.ndarray, m: int) -> bool:
     return not NB * E > 3 * nK + NB * 128
 
 
+def _device_phase(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
+                  threshold, max_rounds, n_dummy, keys=None):
+    """Jacobi rounds (plus the dummy step) at fixed eps until <=
+    ``threshold`` rows and dummies are unplaced, everything is placed, or
+    ``max_rounds`` rounds are spent.  ``prices``, ``owner`` and ``sigma``
+    are updated IN PLACE.  Returns (prices, owner, sigma, rounds,
+    active)."""
+    dt = _auction.numpy_dtype(vals_m.dtype).type
+    eps, bigp = dt(eps), dt(bigp)
+
+    def active():
+        a = _auction.count_unassigned(sigma, nvalid)
+        if n_dummy > 0:
+            a = a + _auction.count_unassigned_dummies(owner, n_dummy)
+        return int(a)
+
+    rounds = 0
+    left = active()
+    while left > threshold and rounds < max_rounds:
+        _auction.jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps,
+                              bigp, keys)
+        if n_dummy > 0:
+            _auction.dummy_grab_step(prices, owner, sigma, eps, n_dummy)
+        rounds += 1
+        left = active()
+    return prices, owner, sigma, rounds, left
+
+
+def _device_ell(prob: ELLProblem, tr, dev, device_cache):
+    """cols, vals_m (transformed, padding = neg sentinel) and nvalid on
+    ``dev``, cached per solver: the cache belongs to ONE AuctionSolver
+    bound to one problem, and the shape/transform fields of the key catch
+    accidental reuse across problems."""
+    dtype = prob.vals.dtype
+    key = (tr.sign, tr.scale, str(dtype), prob.n, prob.m, prob.K, prob.nnz,
+           str(dev))
+    if device_cache is not None and device_cache.get("key") == key:
+        return key, device_cache["ell"]
+    neg = _auction.neg_sentinel_np(dtype)
+    vals_m = np.where(prob.valid, tr.apply(prob.vals), neg)
+    ell = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (prob.cols, vals_m, prob.nvalid.astype(np.int32)))
+    if device_cache is not None:
+        device_cache.update(key=key, ell=ell)
+    return key, ell
+
+
 def _finish_square_fast_path(res, tier_rounds, indptr, indices, data,
                              owner, e_min, bigp, tr, n, mode, t0, t_dev0,
                              csc=None):
@@ -164,9 +218,11 @@ def solve_hybrid(
     theta_tail: Optional[float] = None,
     tail_phases: int = 2,
     max_iter: Optional[int] = None,
+    threshold: int = 4096,
     trunc: int = 256,
     mode: str = "hybrid",            # 'hybrid' | 'cpu'
     warm_prices=None,
+    n_real: Optional[int] = None,
     keep_assignment: bool = True,
     engine: str = "compact",
     device_cache: Optional[dict] = None,
@@ -176,27 +232,29 @@ def solve_hybrid(
     gs_engine: str = "auto",         # 'auto' | 'forward' | 'fr'
     device="cuda",
 ):
-    """eps-scaled solve with device bulk + host tail (``mode='hybrid'``,
-    square) or pure host (``mode='cpu'``).  ``trunc`` is the per-phase
-    truncation point of the device pass.  ``device`` is where the hybrid's
-    device pass runs.
+    """eps-scaled solve with device bulk + host tail (``mode='hybrid'``) or
+    pure host (``mode='cpu'``).  ``trunc`` is the square fast path's
+    per-phase truncation point, ``threshold`` the rectangular path's (the
+    device leaves <= that many unplaced rows and dummies per phase to the
+    host GS).  ``n_real`` (default n) counts the real rows; the other
+    m - n_real are implicit dummies.  ``device`` is where the device
+    rounds run.
 
     Returns (sigma [n] numpy int32, prices numpy, meta dict)."""
     n, m = prob.n, prob.m
-    n_dummy = m - n
-    if mode == "hybrid" and n_dummy != 0:
-        raise NotImplementedError(
-            "the rectangular hybrid is not ported yet (ROADMAP.md, queue 1)")
-    if mode == "hybrid" and engine != "compact":
+    n_real = n if n_real is None else n_real
+    n_dummy = m - n_real
+    square_hybrid = mode == "hybrid" and n_dummy == 0
+    if square_hybrid and engine != "compact":
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet (ROADMAP.md, queue 1)")
     # per-mode defaults: the device schedule (and its mixed tail) on the
-    # square hybrid, the sslap-class schedule on the host engine
+    # square hybrid, the sslap-class schedule everywhere else
     if theta is None:
-        theta = (_auction.device_theta_default(n) if mode == "hybrid"
+        theta = (_auction.device_theta_default(n) if square_hybrid
                  else _auction.HOST_THETA)
     if theta_tail is None:
-        theta_tail = 3.0 if mode == "hybrid" and float(theta) > 5 else 0.0
+        theta_tail = 3.0 if square_hybrid and float(theta) > 5 else 0.0
     vals_np, valid_np = prob.vals, prob.valid
     dtype = vals_np.dtype
     vmax_abs = float(np.abs(vals_np[valid_np]).max()) if valid_np.any() \
@@ -218,7 +276,7 @@ def solve_hybrid(
         if device_cache is not None:
             device_cache.update(csr_key=csr_key, csr=(indptr, indices, data))
     if gs_engine == "auto":   # FR tail on the square hybrid only
-        gs_engine = ("fr" if mode == "hybrid" and native_available()
+        gs_engine = ("fr" if square_hybrid and n == m and native_available()
                      else "forward")
     csc = None
     if gs_engine == "fr" and n == m and native_available():
@@ -242,34 +300,22 @@ def solve_hybrid(
     sigma = np.full(n, -1, np.int32)
     owner = np.full(m, -1, np.int32)
 
-    if mode == "hybrid":
+    use_device = mode == "hybrid"
+    if use_device:
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device "
                                "is available")
         t0 = time.perf_counter()
+        cache_key, (cols_d, vals_d, nvalid_d) = _device_ell(
+            prob, tr, dev, device_cache)
+    if square_hybrid:
         t_dev0 = t0
         trunc_static = min(int(trunc), max(n // 8, 1))
         if fine_ladder is None:
             fine_ladder = True
         tiers = _compact.default_tiers(n, fine=bool(fine_ladder),
                                        floor=trunc_static)
-        # The cache belongs to ONE AuctionSolver bound to one problem; the
-        # shape/transform fields catch accidental reuse across problems.
-        cache_key = (tr.sign, tr.scale, str(dtype), n, m, prob.K, prob.nnz,
-                     str(dev))
-        if device_cache is not None and device_cache.get("key") == cache_key:
-            cols_d, vals_d, nvalid_d = device_cache["ell"]
-        else:
-            neg = _auction.neg_sentinel_np(dtype)
-            vals_m = np.where(valid_np, tr.apply(vals_np), neg)
-            cols_d = torch.from_numpy(np.ascontiguousarray(prob.cols)).to(dev)
-            vals_d = torch.from_numpy(np.ascontiguousarray(vals_m)).to(dev)
-            nvalid_d = torch.from_numpy(
-                np.ascontiguousarray(prob.nvalid, np.int32)).to(dev)
-            if device_cache is not None:
-                device_cache.update(key=cache_key,
-                                    ell=(cols_d, vals_d, nvalid_d))
         if wide_rounds is None:
             wide_rounds = n >= 400_000
         wide = False
@@ -294,9 +340,15 @@ def solve_hybrid(
             res, st.tier_rounds, indptr, indices, data, owner, e_min, bigp,
             tr, n, mode, t0, t_dev0, csc=csc)
 
-    # mode == 'cpu': native Gauss-Seidel eps-scaled solve
+    # Per-phase loop: mode='cpu', or the rectangular hybrid, whose device
+    # rounds run each phase down to ``threshold`` before the host GS.
+    if use_device:
+        d_prices = torch.from_numpy(prices).to(dev)
+        keys = (torch.zeros(m, dtype=torch.int64, device=dev)
+                if dev.type == "cuda" else None)
     profits = np.zeros(n, dtype) if csc is not None else None
     eps = max(e0, e_min)
+    total_rounds = 0
     total_bids = 0
     phases = 0
     t0 = time.perf_counter()
@@ -311,27 +363,44 @@ def solve_hybrid(
             sigma[:] = -1
             owner[:] = -1
         first_phase = False
+        if use_device:
+            d_sigma = torch.from_numpy(sigma).to(dev)
+            d_owner = torch.from_numpy(owner).to(dev)
+            d_prices, d_owner, d_sigma, rounds, _ = _device_phase(
+                cols_d, vals_d, nvalid_d, d_prices, d_owner, d_sigma, eps,
+                bigp, threshold, max(max_iter - total_rounds, 0), n_dummy,
+                keys)
+            total_rounds += rounds
+            # writable host copies for the native GS (it works in place)
+            prices = np.array(d_prices.cpu().numpy(), order="C", copy=True)
+            sigma = np.array(d_sigma.cpu().numpy(), order="C", copy=True)
+            owner = np.array(d_owner.cpu().numpy(), order="C", copy=True)
         bids = _run_gs(indptr, indices, data, prices, sigma, owner, eps,
                        bigp, n_dummy, host_budget, csc=csc, profits=profits)
         if bids < 0:
             break  # bid budget exhausted: likely infeasible
         total_bids += bids
         phases += 1
-        if eps <= e_min or max_iter <= 0:   # no device rounds to count
+        if eps <= e_min or total_rounds >= max_iter:
             break
+        if use_device:
+            d_prices = torch.from_numpy(prices).to(dev)
         eps = max(eps // theta_v, e_min) if is_int else \
             max(eps / theta_v, e_min)
 
     unassigned = int(((sigma < 0) & (np.diff(indptr) > 0)).sum())
     if n_dummy > 0:
-        unassigned += n_dummy - int((owner == -2).sum())
+        unassigned += n_dummy - int((owner == _auction.DUMMY_OWNER).sum())
     meta = {
-        "its": total_bids,
+        # device rounds when the device took part, else the GS engine's
+        # bids (the CPU path has no rounds)
+        "its": total_rounds if use_device else total_bids,
         "host_bids": total_bids,
         "phases": phases,
         "final_eps": float(eps) / tr.scale,
         "unassigned": unassigned,
-        "soln_found": (unassigned == 0 and int((sigma < 0).sum()) == 0
+        "soln_found": (unassigned == 0
+                       and int((sigma[:n_real] < 0).sum()) == 0
                        and eps <= e_min),
         "time": time.perf_counter() - t0,
         "mode": mode,

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
-nvcc compiles every source into one shared library with a plain C
-interface for ``sm_90a`` (Hopper), into ``sslap_tpu_torch/_build/`` keyed
-by a hash of the sources and flags, at first use; ctypes loads it.
+nvcc compiles each source to an object for ``sm_90a`` (Hopper), one
+process per source, all started together, then links them into one shared
+library with a plain C interface, in ``sslap_tpu_torch/_build/`` keyed by
+a hash of the sources and flags, at first use; ctypes loads it.
 Nothing here runs at import: a host without nvcc imports the package and
 uses the kernels' plain twins on CPU tensors, and a CUDA tensor on such a
 host raises from ``load()``.
@@ -21,8 +22,9 @@ from typing import Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+         "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 # What the last compile in this process reported (ptxas register and
@@ -59,6 +61,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         # ids, tgt, bid, C, n, m, keys, prices, owner, sigma, stay,
         # evicted, counts, stream
         fn.argtypes = [p, p, p, i64, i32, i32, p, p, p, p, p, p, p, p]
+    lib.sslap_gs_f32.restype = ctypes.c_int
+    # cols, vals, K, queue, cap, qcount, prices, owner, eps, bigp, neg,
+    # half, real_min, max_bids, stats, stream
+    f32 = ctypes.c_float
+    lib.sslap_gs_f32.argtypes = [p, p, i32, p, i64, i64, p, p, f32, f32, f32,
+                                 f32, f32, i64, p, p]
     lib.sslap_error_string.restype = ctypes.c_char_p
     lib.sslap_error_string.argtypes = [ctypes.c_int]
 
@@ -75,18 +83,36 @@ def load() -> ctypes.CDLL:
         h.update(f.read_bytes())
     so = _BUILD / f"sslap_torch_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".tmp{os.getpid()}.so")
+        nvcc = _nvcc()
+        tmp_dir = _BUILD / f"tmp{os.getpid()}"
+        tmp_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        out = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp),
-                              *map(str, srcs)],
-                             capture_output=True, text=True, timeout=900)
+        objs = [tmp_dir / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = []
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{out[-4000:]}")
+        tmp = tmp_dir / so.name
+        out = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True, timeout=900)
         if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({out.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({out.returncode}):\n"
                                f"{out.stderr[-4000:]}")
         os.replace(tmp, so)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
         build_seconds = time.perf_counter() - t0
-        build_log = out.stderr
+        build_log = "".join(logs)
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     _lib = lib

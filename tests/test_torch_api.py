@@ -1,8 +1,10 @@
 """The port's public API (sslap_tpu_torch.AuctionSolver) against the JAX
 package's, on the CPU (``device="cpu"`` runs the kernels' twins).
 
-The square hybrid and mode='cpu' must match the reference bit for bit:
-solution, prices, round and bid counts, tier histogram and meta keys.
+The square and rectangular hybrid, mode='device' and mode='cpu' must
+match the reference bit for bit: solution, prices, round and bid counts,
+tier histogram and meta keys; hopcroft_solve and linear_sum_assignment
+return the reference's arrays.
 """
 
 import subprocess
@@ -15,6 +17,9 @@ import torch
 
 import sslap_tpu as R
 import sslap_tpu_torch as P
+from scipy.optimize import linear_sum_assignment as scipy_lsa
+from sslap_tpu import hybrid as RH
+from sslap_tpu import ingest as RI
 from sslap_tpu_torch import hybrid as PH
 from tests.utils import random_sparse_instance, scipy_sparse_objective
 
@@ -169,7 +174,7 @@ def test_infeasible_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="device"), dict(mode="sharded"), dict(mode="overlapped"),
+    dict(mode="sharded"), dict(mode="overlapped"),
     dict(mode="sharded_hybrid"), dict(engine="candidates"),
     dict(engine="dense"),
 ])
@@ -183,17 +188,158 @@ def test_unported_modes_and_engines_raise(kw):
 def test_unported_paths_raise_instead_of_rerouting():
     rng = np.random.default_rng(13)
     loc, val, _ = random_sparse_instance(rng, 40, 60, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.auction_solve(loc=loc, val=val, shape=(40, 60), mode="hybrid",
-                        device="cpu")
+    # the rectangular hybrid is ported: it solves, as the reference does
+    _assert_same(R.auction_solve(loc=loc, val=val, shape=(40, 60),
+                                 mode="hybrid"),
+                 P.auction_solve(loc=loc, val=val, shape=(40, 60),
+                                 mode="hybrid", device="cpu"))
     dense = rng.integers(1, 100, (64, 64))      # auto picks engine='dense'
     with pytest.raises(NotImplementedError, match="dense"):
         P.auction_solve(dense, mode="hybrid", device="cpu")
     assert P.auction_solve(dense, mode="hybrid", engine="compact",
                            device="cpu")["meta"]["soln_found"]
-    with pytest.raises(ValueError, match="float64"):
-        P.auction_solve(dense, mode="hybrid", dtype=np.float64,
-                        device="cpu")
+    for mode in ("hybrid", "device"):
+        with pytest.raises(ValueError, match="float64"):
+            P.auction_solve(dense, mode=mode, dtype=np.float64,
+                            device="cpu")
+
+
+@pytest.mark.parametrize("case", [
+    dict(integer=True), dict(integer=False),
+    dict(integer=True, keep_assignment=False),
+    dict(integer=False, problem="max", warm=True),
+])
+def test_rectangular_hybrid_matches_reference(case):
+    """The per-phase path with device rounds (threshold 16, so this small
+    instance runs them) and the native dummy-heap GS between phases."""
+    case = dict(case)
+    integer, warm = case.pop("integer"), case.pop("warm", False)
+    n, m = 150, 260
+    rng = np.random.default_rng(21)
+    loc, val, _ = random_sparse_instance(rng, n, m, 0.04, integer=integer)
+    if not integer:
+        val = val.astype(np.float32)
+    kw = dict(mode="hybrid", threshold=16, **case)
+    if warm:
+        kw["warm_prices"] = P.auction_solve(
+            loc=loc, val=val, shape=(n, m), mode="cpu",
+            problem=case["problem"])["prices"] * np.float32(0.9)
+    rs, rp, rm = RH.solve_hybrid(RI.from_coo(loc, val, shape=(n, m)), **kw)
+    ps, pp, pm = PH.solve_hybrid(P.from_coo(loc, val, shape=(n, m)),
+                                 device="cpu", **kw)
+    np.testing.assert_array_equal(ps, rs)
+    np.testing.assert_array_equal(_bits(pp), _bits(rp))
+    assert set(pm) == set(rm)
+    for k in ("its", "host_bids", "phases", "final_eps", "unassigned",
+              "soln_found", "mode"):
+        assert pm[k] == rm[k], k
+    assert pm["its"] > 0 and pm["soln_found"]
+
+
+def test_rectangular_hybrid_solver_matches_reference():
+    """Through AuctionSolver, with more than threshold = 4096 rows and
+    dummies to place, so the device phases run at the default."""
+    n, m = 2500, 4500
+    rng = np.random.default_rng(22)
+    rr = np.repeat(np.arange(n), 6)
+    cc = rng.integers(0, m, n * 6)
+    rr = np.concatenate([rr, np.arange(n)])
+    cc = np.concatenate([cc, rng.permutation(m)[:n]])
+    _, idx = np.unique(rr * m + cc, return_index=True)
+    loc = np.stack([rr[idx], cc[idx]], 1)
+    val = rng.integers(1, 1000, idx.shape[0])
+    r = R.AuctionSolver(loc=loc, val=val, shape=(n, m), mode="hybrid").solve()
+    p = P.AuctionSolver(loc=loc, val=val, shape=(n, m), mode="hybrid",
+                        device="cpu").solve()
+    _assert_same(r, p)
+    assert p["meta"]["its"] > 0 and p["meta"]["soln_found"]
+    assert p["meta"]["obj"] == int(round(scipy_sparse_objective(loc, val, n,
+                                                                m)))
+
+
+@pytest.mark.parametrize("case", [
+    dict(n=300, integer=True), dict(n=300, integer=False, problem="max"),
+    dict(n=300, integer=True, keep_assignment=False),
+    dict(n=120, m=200, integer=True), dict(n=120, m=200, integer=False),
+    dict(n=300, integer=False, warm=True),
+])
+def test_device_mode_matches_reference(case):
+    """mode='device': the tiered solve for square problems that keep the
+    assignment, the full-width Jacobi solve for the rest."""
+    case = dict(case)
+    n, m = case.pop("n"), case.pop("m", None)
+    integer, warm = case.pop("integer"), case.pop("warm", False)
+    if m is None:
+        loc, val = _instance(23, n, integer)
+        m = n
+    else:
+        rng = np.random.default_rng(23)
+        loc, val, _ = random_sparse_instance(rng, n, m, 0.05,
+                                             integer=integer)
+        val = val if integer else val.astype(np.float32)
+    kw = dict(loc=loc, val=val, shape=(n, m), mode="device", **case)
+    r = R.AuctionSolver(**kw)
+    p = P.AuctionSolver(device="cpu", **kw)
+    if warm:
+        r1, p1 = r.solve(), p.solve()
+        _assert_same(r1, p1)
+        r, p = (r.solve(warm_prices=r1["prices"], warm_relax=0.9),
+                p.solve(warm_prices=p1["prices"], warm_relax=0.9))
+    else:
+        r, p = r.solve(), p.solve()
+    _assert_same(r, p)
+    assert p["meta"]["soln_found"] and p["meta"]["mode"] == "device"
+    if integer:
+        assert p["meta"]["obj"] == int(round(scipy_sparse_objective(
+            loc, val, n, m, maximize=case.get("problem") == "max")))
+
+
+def test_auto_without_native_runtime_picks_device(monkeypatch):
+    loc, val = _instance(24, 200, True)
+    monkeypatch.setattr(PH, "native_available", lambda: False)
+    p = P.auction_solve(loc=loc, val=val, shape=(200, 200), device="cpu")
+    r = R.auction_solve(loc=loc, val=val, shape=(200, 200), mode="device")
+    _assert_same(r, p)
+
+
+def test_hopcroft_solve_matches_reference():
+    rng = np.random.default_rng(25)
+    _, _, dense = random_sparse_instance(rng, 40, 40, 0.08)
+    np.testing.assert_array_equal(P.hopcroft_solve(dense),
+                                  R.hopcroft_solve(dense))
+    loc, _, _ = random_sparse_instance(rng, 50, 80, 0.04)
+    loc = loc[rng.permutation(loc.shape[0])[:int(0.8 * loc.shape[0])]]
+    loc = loc[loc[:, 0] != 7]                   # row 7 stays unmatched
+    got = P.hopcroft_solve(loc=loc, shape=(50, 80))
+    np.testing.assert_array_equal(got, R.hopcroft_solve(loc=loc,
+                                                        shape=(50, 80)))
+    assert got.dtype == np.int64 and (got >= 0).sum() < 50
+    # warm: a stale matching with a vanished edge and a duplicated column
+    warm = got.copy()
+    warm[np.flatnonzero(got >= 0)[:3]] = got[np.flatnonzero(got >= 0)[3]]
+    warm[np.flatnonzero(got < 0)[0]] = 79
+    np.testing.assert_array_equal(
+        P.hopcroft_solve(loc=loc, shape=(50, 80), warm=warm),
+        R.hopcroft_solve(loc=loc, shape=(50, 80), warm=warm))
+    with pytest.raises(ValueError, match="loc"):
+        P.hopcroft_solve()
+
+
+@pytest.mark.parametrize("shape,maximize,low", [
+    ((30, 45), False, 0), ((45, 30), False, 0), ((40, 40), True, 0),
+    ((35, 50), False, -500), ((50, 35), True, -500),
+])
+def test_linear_sum_assignment_matches_reference_and_scipy(shape, maximize,
+                                                           low):
+    rng = np.random.default_rng(26)
+    cost = rng.integers(low, 1000, shape).astype(np.float64)
+    got = P.linear_sum_assignment(cost, maximize=maximize, device="cpu")
+    ref = R.linear_sum_assignment(cost, maximize=maximize)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    r, c = scipy_lsa(cost, maximize=maximize)
+    assert got[0].shape == r.shape
+    assert cost[got].sum() == cost[r, c].sum()
 
 
 def test_hybrid_on_cuda_without_a_card_raises():

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on a card: each against its plain PyTorch twin,
-and the whole hybrid solve on CUDA against the same solve on the CPU.
+"""The port's CUDA kernels on a card: each against its plain PyTorch twin
+(K3 also against the native Gauss-Seidel engine), and the hybrid (square
+and rectangular) and device-mode solves on CUDA against the same solves on
+the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs where only torch is
@@ -16,9 +18,11 @@ import pytest
 import torch
 
 import sslap_tpu_torch as P
+from sslap_tpu_torch import _native
+from sslap_tpu_torch import hybrid as PH
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import bid_topk, bid_topk_plain, commit, \
-    commit_plain
+    commit_plain, gs_auction_device, gs_auction_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +134,94 @@ def _instance(n, seed=16, k=8):
     rr, cc = rr[idx], cc[idx]
     val = (rng.random(rr.shape[0]) * 999 + 1).astype(np.float32)
     return np.stack([rr, cc], 1), val
+
+
+def _rect_instance(n, m, seed=18, k=6):
+    rng = np.random.default_rng(seed)
+    rr = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
+    cc = np.concatenate([rng.integers(0, m, n * k),
+                         rng.permutation(m)[:n]])
+    _, idx = np.unique(rr * m + cc, return_index=True)
+    return np.stack([rr[idx], cc[idx]], 1), rng.integers(1, 1000, idx.shape[0])
+
+
+@pytest.mark.parametrize("n,k", [(3000, 8), (400, 60)])
+def test_gs_kernel_matches_twin_and_native(dev, n, k):
+    """K3 from a cold start: capped, against the twin (all five outputs);
+    to the end, against the native forward GS (prices bit for bit).  K = 60
+    puts two slots on some lanes."""
+    loc, val = _instance(n, seed=19, k=k)
+    val = val.copy()
+    val[::17] = 0                                 # zero costs: -0.0 values
+    prob = P.from_coo(loc, val, shape=(n, n))
+    indptr, indices, data = PH.ell_to_csr_transformed(prob, -1, 1)
+    bigp = np.float32(data.max() - data.min()) + np.float32(1.0)
+    vals_m = np.where(prob.valid, -prob.vals, neg_sentinel_np(np.float32))
+    queue = np.full(n + 1, -1, np.int32)
+    queue[:n] = np.arange(n)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = (t(prob.cols), t(vals_m), t(queue), n,
+            t(np.zeros(n, np.float32)), t(np.full(n, -1, np.int32)),
+            np.float32(0.5), bigp)
+    before = gs_auction_device.launches
+    got = gs_auction_device(*args, 2 * n)
+    want = gs_auction_plain(*args, 2 * n)
+    torch.cuda.synchronize()
+    assert gs_auction_device.launches == before + 1
+    assert int(got[3]) == 2 * n and int(got[4]) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    full = gs_auction_device(*args, 10 ** 9)
+    prices = np.zeros(n, np.float32)
+    sigma = np.full(n, -1, np.int32)
+    owner = np.full(n, -1, np.int32)
+    bids = _native.auction_gs(indptr, indices, data, prices, sigma, owner,
+                              np.float32(0.5), bigp, 0, 10 ** 9)
+    assert int(full[3]) == bids > n and int(full[4]) == 0
+    np.testing.assert_array_equal(full[1].cpu().numpy(), owner)
+    np.testing.assert_array_equal(_bits(full[0]), prices.view(np.int32))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(problem="max")])
+def test_rectangular_hybrid_on_cuda_matches_cpu(dev, kw):
+    n, m = 3000, 5000             # > threshold 4096 unplaced at the start
+    loc, val = _rect_instance(n, m)
+    out = []
+    for device in ("cuda", "cpu"):
+        bid_topk.launches = commit.launches = 0
+        out.append(P.AuctionSolver(loc=loc, val=val, shape=(n, m),
+                                   mode="hybrid", device=device,
+                                   **kw).solve())
+        if device == "cuda":
+            assert bid_topk.launches == commit.launches == \
+                out[0]["meta"]["its"] > 0
+    g, c = out
+    np.testing.assert_array_equal(g["sol"], c["sol"])
+    np.testing.assert_array_equal(g["prices"], c["prices"])
+    for k in ("its", "host_bids", "phases", "obj"):
+        assert g["meta"][k] == c["meta"][k], k
+    assert g["meta"]["soln_found"]
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((3000, 3000), dict()), ((3000, 3000), dict(keep_assignment=False)),
+    ((1500, 2500), dict(max_iter=3000)),
+])
+def test_device_mode_on_cuda_matches_cpu(dev, shape, kw):
+    """The rectangular case is capped: the full-width solve with dummies
+    can spend its whole max_iter (50 n + 2000 rounds) there, so the state
+    after the cap is compared."""
+    n, m = shape
+    loc, val = (_instance(n) if n == m else _rect_instance(n, m))
+    g, c = (P.AuctionSolver(loc=loc, val=val, shape=shape, mode="device",
+                            device=d, **kw).solve() for d in ("cuda", "cpu"))
+    np.testing.assert_array_equal(g["sol"], c["sol"])
+    np.testing.assert_array_equal(_bits(torch.from_numpy(g["prices"])),
+                                  _bits(torch.from_numpy(c["prices"])))
+    for k in ("its", "phases", "final_eps", "obj"):
+        assert g["meta"][k] == c["meta"][k], k
+    assert g["meta"]["mode"] == "device"
+    assert g["meta"]["soln_found"] or g["meta"]["its"] == kw["max_iter"]
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(wide_rounds=True, theta=10.0)])
