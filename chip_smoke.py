@@ -23,11 +23,15 @@ of which raises on failure (so the exit code is non-zero):
   6. gs       -- K3 (ops.gs_auction_device) on the headline's tail: the
                  square hybrid's device pass is rebuilt from the package's
                  functions, owner derived, the unassigned rows with entries
-                 queued ascending (the native engine's order).  K3 against
-                 its twin for the first 20,000 bids (exact), then K3 and the
-                 native forward auction_gs on that state to the end (or
-                 both to one cap, if K3 would need more than 60 s): prices
-                 bit for bit, owner and bid counts equal
+                 queued ascending (the native engine's order).  K3 with its
+                 row prefetch on and off, each against its twin for the
+                 first 20,000 bids (exact), then each and the native forward
+                 auction_gs on that state to the end (or all to one cap, if
+                 K3 would need more than 60 s): prices bit for bit, owner
+                 and bid counts equal.  Then the reference's _scan stubs
+                 ("const", "noprices") on the same state, prefetch on and
+                 off: exact against the twin over 20,000 bids, timed over
+                 1,000,000 bids (the chain without its K price gathers)
   7. rect     -- the 100k x 200k, 10 nnz/row rectangular sweep row
                  (benchmarks/run_all.py:make_sparse, integer costs < 10,000,
                  seed 11) through mode="hybrid" on the card and mode="cpu".
@@ -42,12 +46,24 @@ of which raises on failure (so the exit code is non-zero):
                  and at 10k x 20k (int32, capped at 1,000 rounds: the
                  full-width rectangular solve can spend its whole
                  max_iter, 50 n + 2000 rounds, there)
+  9. probes   -- the GS micro-probes (ops.probe_gs, P1-P17 and K3's
+                 gs_small*): the suite as `python -m
+                 sslap_tpu_torch.ops.probe_gs` runs it, launch counts zeroed
+                 around it; each probe's kernel against its plain version
+                 at the reference's shapes (exact) with the reference's
+                 asserts; P6 (prefetch pump) against P9 (start + wait) over
+                 500,000 copies from a 512 MB table; the ladder kernels
+                 (P16, P17), stages 1-3, at n = m = 1M, K = 10, against the
+                 plain version over 20,000 bids and in closed form over all
+                 1M bids
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
-counted on its path (K1, K2: the cold headline solve; K3: the tail run),
-and its time and its twin's time (K1, K2: C = 1M, float32; K3: the first
-20,000 bids of the tail).  The last line is {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+counted on its path (K1, K2: the cold headline solve; K3: the two tail
+runs; P1-P17: the probe suite), and its time and its plain version's time
+(K1, K2: C = 1M, float32; K3: the first 20,000 bids of the tail, with
+ms_noprefetch beside; P1-P17: the reference shapes, P16/P17 at stage 3,
+with ns/iteration or ns/bid of the scaled runs beside).  The last line is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -65,6 +81,7 @@ from sslap_tpu_torch import compact as C
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_plain, commit, \
     commit_plain, gs_auction_device, gs_auction_plain
+from sslap_tpu_torch.ops import probe_gs as PG
 
 N_HEAD = 1_000_000
 K_HEAD = 10
@@ -82,7 +99,8 @@ KERNELS = {
                           "source": "sslap_tpu_torch/ops/csrc/gs.cu",
                           "replaces": "sslap_tpu/ops/gs_kernel.py:64"},
 }
-GS_TWIN_BIDS = 20_000         # what the twin's per-bid Python loop runs
+GS_TWIN_BIDS = 20_000         # K3 against its twin over this prefix
+GS_STUB_BIDS = 1_000_000      # the _scan stubs' timed runs on the tail
 GS_MAX_SECONDS = 60.0         # above this, K3 and native stop at one cap
 
 
@@ -503,8 +521,11 @@ def headline_device_pass(solver):
 
 def phase_gs(solver, cold_its):
     """K3 against its twin, then K3 against the native forward GS, on the
-    headline's tail state.  Returns (max abs error vs the twin, K3 ms and
-    twin ms over the first GS_TWIN_BIDS bids, launches in the tail run)."""
+    headline's tail state, with its row prefetch on and off; then the
+    reference's _scan stubs on the same state.  Returns (max abs error vs
+    the twin, K3 ms with and without prefetch and twin ms over the first
+    GS_TWIN_BIDS bids, launches in the tail runs, us/bid per (scan,
+    prefetch))."""
     t0 = time.perf_counter()
     res, e_min, bigp, csr, (cols_d, vals_d, nvalid_d) = \
         headline_device_pass(solver)
@@ -530,18 +551,24 @@ def phase_gs(solver, cold_its):
         f"{pending.shape[0]} rows queued, eps {eps!r}, bigp {bigp!r} "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    got, k3_ms = _events_ms(lambda: gs_auction_device(*state, GS_TWIN_BIDS))
     want, twin_ms = _events_ms(lambda: gs_auction_plain(*state,
                                                         GS_TWIN_BIDS))
-    if not (_same_bits(got[0], want[0]) and all(
-            torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
-            and int(got[3]) == GS_TWIN_BIDS):
-        raise AssertionError("gs_auction_device differs from its twin")
-    err = _abs_err(got[0], want[0])
-    us_per_bid = 1e3 * k3_ms / GS_TWIN_BIDS
-    log(f"[6 gs] first {GS_TWIN_BIDS} bids: K3 {k3_ms:.3f} ms "
-        f"({us_per_bid:.3f} us/bid), twin {twin_ms:.3f} ms "
-        f"({1e3 * twin_ms / GS_TWIN_BIDS:.3f} us/bid); exact")
+    k3_ms, err = {}, 0.0
+    for prefetch in (True, False):
+        got, k3_ms[prefetch] = _events_ms(lambda: gs_auction_device(
+            *state, GS_TWIN_BIDS, prefetch=prefetch))
+        if not (_same_bits(got[0], want[0]) and all(
+                torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+                and int(got[3]) == GS_TWIN_BIDS):
+            raise AssertionError(f"gs_auction_device(prefetch={prefetch}) "
+                                 f"differs from its twin")
+        err = max(err, _abs_err(got[0], want[0]))
+    us_per_bid = 1e3 * max(k3_ms.values()) / GS_TWIN_BIDS
+    log(f"[6 gs] first {GS_TWIN_BIDS} bids: K3 prefetch {k3_ms[True]:.3f} ms"
+        f" ({1e3 * k3_ms[True] / GS_TWIN_BIDS:.3f} us/bid), no prefetch "
+        f"{k3_ms[False]:.3f} ms ({1e3 * k3_ms[False] / GS_TWIN_BIDS:.3f} "
+        f"us/bid), twin {twin_ms:.3f} ms ({1e3 * twin_ms / GS_TWIN_BIDS:.3f}"
+        f" us/bid); exact")
 
     def native(max_bids):
         p = prices.cpu().numpy().copy()
@@ -563,25 +590,51 @@ def phase_gs(solver, cold_its):
             f"{cap} bids")
         p_nat, o_nat, nat_bids, nat_s = native(cap)
         nat_bids = cap if nat_bids == -1 else nat_bids
+    log(f"[6 gs] native forward GS on the tail: {nat_bids} bids, "
+        f"{nat_s:.3f} s ({1e6 * nat_s / nat_bids:.3f} us/bid)")
     gs_auction_device.launches = 0
-    t = time.perf_counter()
-    out, k3_full_ms = _events_ms(lambda: gs_auction_device(*state, cap))
-    k3_s = time.perf_counter() - t
+    us = {}
+    for prefetch in (True, False):
+        t = time.perf_counter()
+        out, k3_full_ms = _events_ms(lambda: gs_auction_device(
+            *state, cap, prefetch=prefetch))
+        k3_s = time.perf_counter() - t
+        k3_bids, left = int(out[3]), int(out[4])
+        if not (k3_bids == nat_bids and (left == 0) == (cap == budget)
+                and np.array_equal(out[0].cpu().numpy().view(np.int32),
+                                   p_nat.view(np.int32))
+                and np.array_equal(out[1].cpu().numpy(), o_nat)):
+            raise AssertionError(
+                f"K3 (prefetch={prefetch}) differs from the native GS on the"
+                f" tail (bids {k3_bids} vs {nat_bids}, left {left})")
+        log(f"[6 gs] tail, K3 prefetch={prefetch}: {k3_bids} bids in "
+            f"{k3_s:.3f} s (events {k3_full_ms:.1f} ms, "
+            f"{1e3 * k3_full_ms / k3_bids:.3f} us/bid); rows left {left}; "
+            f"prices bitwise, owner and bids equal to native")
+        us[("full", prefetch)] = 1e3 * k3_full_ms / k3_bids
     launches = gs_auction_device.launches
-    k3_bids, left = int(out[3]), int(out[4])
-    if not (k3_bids == nat_bids and (left == 0) == (cap == budget)
-            and np.array_equal(out[0].cpu().numpy().view(np.int32),
-                               p_nat.view(np.int32))
-            and np.array_equal(out[1].cpu().numpy(), o_nat)):
-        raise AssertionError(f"K3 differs from the native GS on the tail "
-                             f"(bids {k3_bids} vs {nat_bids}, left {left})")
-    if launches != 1:
+    if launches != 2:
         raise AssertionError(f"K3 launched {launches} times on the tail")
-    log(f"[6 gs] tail: K3 {k3_bids} bids in {k3_s:.3f} s (events "
-        f"{k3_full_ms:.1f} ms, {1e3 * k3_full_ms / k3_bids:.3f} us/bid), "
-        f"native forward GS {nat_s:.3f} s ({1e6 * nat_s / nat_bids:.3f} "
-        f"us/bid); rows left {left}; prices bitwise, owner and bids equal")
-    return err, k3_ms, twin_ms, launches
+
+    # The chain's links: "noprices" drops the K price gathers, "const"
+    # bids on the first slot after one price read; each stub against its
+    # twin over the prefix, then timed over GS_STUB_BIDS bids.
+    for scan in ("const", "noprices"):
+        want = gs_auction_plain(*state, GS_TWIN_BIDS, _scan=scan)
+        for prefetch in (True, False):
+            got = gs_auction_device(*state, GS_TWIN_BIDS, prefetch=prefetch,
+                                    _scan=scan)
+            if not (_same_bits(got[0], want[0]) and all(
+                    torch.equal(a, b) for a, b in zip(got[1:], want[1:]))):
+                raise AssertionError(f"K3 _scan={scan} prefetch={prefetch} "
+                                     f"differs from its twin")
+            out, ms = _events_ms(lambda: gs_auction_device(
+                *state, GS_STUB_BIDS, prefetch=prefetch, _scan=scan))
+            us[(scan, prefetch)] = 1e3 * ms / int(out[3])
+            log(f"[6 gs] tail, K3 _scan={scan} prefetch={prefetch}: "
+                f"{int(out[3])} bids, {us[(scan, prefetch)]:.3f} us/bid; "
+                f"== twin over {GS_TWIN_BIDS} bids")
+    return err, k3_ms[True], k3_ms[False], twin_ms, launches, us
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +720,164 @@ def phase_jacobi():
             (10_000, 10_000), mode="device")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the GS micro-probes (P1-P17)
+# ---------------------------------------------------------------------------
+
+
+PROBE_ITERS = 500_000         # P6 / P9: rows 2i of a [1M, 128] int32 table
+LADDER_PLAIN_BIDS = 20_000    # the ladder's plain version on a prefix
+
+
+def _timed(fn, reps=20):
+    """(first result, median CUDA-event ms of fn() over reps calls); a call
+    above 50 ms is timed once."""
+    out, ms = _events_ms(fn)
+    if ms > 50:
+        return out, ms
+    marks = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        marks.append((t0, t1))
+    torch.cuda.synchronize()
+    return out, float(np.median([a.elapsed_time(b) for a, b in marks]))
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _probe_against_plain(name, dev):
+    """Probe ``name`` at its reference shapes: kernel == plain version bit
+    for bit, the reference's asserts; (max abs error, kernel ms, plain
+    ms)."""
+    kernel = PG.PROBES[name]
+    plain = PG.plain_of(kernel)
+    args, kw = PG.make_inputs(name)
+    x = PG.to_device(args, dev)
+    got, k_ms = _timed(lambda: _as_tuple(kernel(*x, **kw)))
+    want, p_ms = _timed(lambda: _as_tuple(plain(*x, **kw)), reps=3)
+    if not (len(got) == len(want) and all(
+            a.dtype == b.dtype and a.shape == b.shape and _same_bits(a, b)
+            for a, b in zip(got, want))):
+        raise AssertionError(f"probe {name}: kernel differs from its plain "
+                             f"version")
+    PG.check(name, got)
+    err = max(_abs_err(a.reshape(-1), b.reshape(-1))
+              for a, b in zip(got, want))
+    log(f"[9 probes] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+        f"exact, the reference's asserts hold")
+    return err, k_ms, p_ms
+
+
+def _pump_against_start_wait(dev):
+    """P6 (prefetch pump) and P9 (start + wait) over PROBE_ITERS 2-row
+    copies from a 512 MB table (~10x the L2), turn about; ns/iteration."""
+    hbm = torch.ones(2 * PROBE_ITERS, PG.LINE, dtype=torch.int32,
+                     device=dev)
+    ns = {}
+    for name in ("while_double_buffer", "sem_2d_dynamic", "sem_2d_dynamic",
+                 "while_double_buffer"):
+        out, ms = _events_ms(lambda: PG.PROBES[name]((PROBE_ITERS,), hbm))
+        if int(out[0][0]) != PROBE_ITERS * PG.LINE:
+            raise AssertionError(f"{name} at scale: acc {int(out[0][0])}")
+        ns.setdefault(name, []).append(1e6 * ms / PROBE_ITERS)
+    log(f"[9 probes] {PROBE_ITERS} copies of 2 rows from a "
+        f"{2 * PROBE_ITERS} x 128 int32 table: P6 pump "
+        f"{ns['while_double_buffer']} ns/iter, P9 start+wait "
+        f"{ns['sem_2d_dynamic']} ns/iter; acc = N * 128")
+    return ns
+
+
+def _ladder_at_scale(dev, n=N_HEAD, K=K_HEAD):
+    """P16/P17, stages 1-3, at the headline's shape: rows 0..n-1 queued
+    ascending, cols[:, 0] = row id (no evictions), random prices p0.
+    Kernel == plain over the first LADDER_PLAIN_BIDS bids; the full run
+    checked in closed form.  Returns ns/bid per (kernel name, stage)."""
+    p0 = (np.random.default_rng(4).random(n) * 10).astype(np.float32)
+    p0_d = torch.from_numpy(p0).to(dev)
+    ns = {}
+    for unified in (True, False):
+        kernel = PG.gs_ladder_uni if unified else PG.gs_ladder
+        args, _ = PG.ladder_inputs(n, n, K, n + 1, unified=unified, stage=1,
+                                   max_bids=10 * n, prices=p0)
+        # acc = ((acc + p0[u]) + vals[u, 0]) over u ascending, in float32
+        v0 = args[2].reshape(-1)[:n * K:K]
+        acc = np.add.accumulate(np.stack([p0, v0], 1).reshape(-1))[-1:]
+        x = PG.to_device(args, dev)
+        prefix = ((n, LADDER_PLAIN_BIDS, n + 1), *x[1:])
+        for stage in (1, 2, 3):
+            kw = dict(K=K, stage=stage)
+            got, want = kernel(*prefix, **kw), kernel.plain(*prefix, **kw)
+            torch.cuda.synchronize()
+            if not all(_same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{kernel.name} stage {stage}: kernel "
+                                     f"!= plain over {LADDER_PLAIN_BIDS} "
+                                     f"bids")
+            out, ms = _events_ms(lambda: kernel(*x, **kw))
+            if unified:
+                q, p, o = out[0][0], out[0][1].view(torch.float32), out[0][2]
+                q0 = x[3][0]
+            else:
+                q, p, o = (t.reshape(-1) for t in out[:3])
+                q0 = x[3].reshape(-1)
+            p_want = p0_d if stage == 1 else p0_d + np.float32(0.5)
+            o_want = (torch.full((n,), -1, dtype=torch.int32, device=dev)
+                      if stage == 1 else torch.arange(
+                          n, dtype=torch.int32, device=dev))
+            if not (out[-2].tolist() == [n, 0] and torch.equal(q, q0)
+                    and _same_bits(p[:n], p_want) and torch.equal(o[:n],
+                                                                  o_want)
+                    and np.array_equal(out[-1].cpu().numpy().view(np.int32),
+                                       acc.view(np.int32))):
+                raise AssertionError(f"{kernel.name} stage {stage} at n = "
+                                     f"{n}: not the closed form")
+            ns[(kernel.name, stage)] = 1e6 * ms / n
+            log(f"[9 probes] {kernel.name} stage {stage}, n = m = {n}, K = "
+                f"{K}: {ns[(kernel.name, stage)]:.1f} ns/bid ({ms:.1f} ms); "
+                f"== plain over {LADDER_PLAIN_BIDS} bids, closed form holds")
+    return ns
+
+
+def phase_probes():
+    """The probe suite through its entry point (launch counts zeroed
+    around it), then each probe against its plain version, then the scaled
+    runs.  Returns the {"kernels"} entries of P1-P17."""
+    dev = torch.device(DEVICE)
+    for k in PG.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    PG.main([])
+    launches = {key: k.launches for key, k in PG.KERNELS.items()}
+    log(f"[9 probes] suite (python -m sslap_tpu_torch.ops.probe_gs) in "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a probe kernel was not launched: {launches}")
+    per_probe = {name: _probe_against_plain(name, dev) for name in PG.ORDER}
+    pump = _pump_against_start_wait(dev)
+    ladder = _ladder_at_scale(dev)
+    entries = []
+    for key, kernel in PG.KERNELS.items():
+        names = [nm for nm, k in PG.PROBES.items() if k is kernel]
+        _, k_ms, p_ms = per_probe[names[-1]]
+        entry = dict(name=f"{key} {kernel.name}", route="cuda",
+                     source=kernel.source, replaces=kernel.replaces,
+                     launches=launches[key],
+                     max_abs_err=max(per_probe[nm][0] for nm in names),
+                     ms=k_ms, plain_ms=p_ms)
+        if kernel.name in pump:
+            entry["ns_per_iter_500k"] = pump[kernel.name]
+        if kernel in (PG.gs_ladder_uni, PG.gs_ladder):
+            entry["ns_per_bid_1M"] = {str(s): ladder[(kernel.name, s)]
+                                      for s in (1, 2, 3)}
+        entries.append(entry)
+    return entries
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -674,16 +885,21 @@ def main() -> None:
     phase_parity()
     launches, solver = phase_headline()
     name = "gs_auction_device"
-    errs[name], times[name], times[name + "_plain"], launches[name] = \
-        phase_gs(solver, solver.meta["its"])
+    errs[name], times[name], k3_noprefetch_ms, times[name + "_plain"], \
+        launches[name], k3_us = phase_gs(solver, solver.meta["its"])
     del solver
     phase_rect()
     phase_jacobi()
+    probes = phase_probes()
     kernels = [dict(name=name, **KERNELS[name], launches=launches[name],
                     max_abs_err=errs[name], ms=times[name],
                     plain_ms=times[name + "_plain"])
                for name in KERNELS]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    kernels[-1]["ms_noprefetch"] = k3_noprefetch_ms
+    kernels[-1]["tail_us_per_bid"] = {
+        f"{scan}{'' if pf else ' noprefetch'}": v
+        for (scan, pf), v in k3_us.items()}
+    print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

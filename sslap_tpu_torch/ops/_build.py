@@ -63,12 +63,28 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [p, p, p, i64, i32, i32, p, p, p, p, p, p, p, p]
     lib.sslap_gs_f32.restype = ctypes.c_int
     # cols, vals, K, queue, cap, qcount, prices, owner, eps, bigp, neg,
-    # half, real_min, max_bids, stats, stream
-    f32 = ctypes.c_float
+    # half, real_min, max_bids, prefetch, scan, stats, stream
+    f32, c_int = ctypes.c_float, ctypes.c_int
     lib.sslap_gs_f32.argtypes = [p, p, i32, p, i64, i64, p, p, f32, f32, f32,
-                                 f32, f32, i64, p, p]
+                                 f32, f32, i64, c_int, c_int, p, p]
+    # P1-P3: src, row, off, scratch_rows, out, stream
+    lib.sslap_probe_copy.restype = c_int
+    lib.sslap_probe_copy.argtypes = [p, i64, i32, i32, p, p]
+    # P4-P5: table, idx, widx, out, stream
+    lib.sslap_probe_lane.restype = c_int
+    lib.sslap_probe_lane.argtypes = [p, i64, i64, p, p]
+    # P6-P15: variant, hbm, vbm, q, pt, ot, n, out, stream
+    lib.sslap_probe_queue.restype = c_int
+    lib.sslap_probe_queue.argtypes = [c_int, p, p, p, p, p, i32, p, p]
+    # P16-P17: stage, unified, clines, vlines, K, q, p, o, qcount,
+    # max_bids, cap, stats, acc, stream
+    lib.sslap_probe_ladder.restype = c_int
+    lib.sslap_probe_ladder.argtypes = [c_int, c_int, p, p, i32, p, p, p, i64,
+                                       i64, i64, p, p, p]
+    lib.sslap_smem_optin.restype = c_int
+    lib.sslap_smem_optin.argtypes = [c_int]
     lib.sslap_error_string.restype = ctypes.c_char_p
-    lib.sslap_error_string.argtypes = [ctypes.c_int]
+    lib.sslap_error_string.argtypes = [c_int]
 
 
 def load() -> ctypes.CDLL:
@@ -124,3 +140,14 @@ def check(err: int, what: str) -> None:
     if err != 0:
         text = _lib.sslap_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({text})")
+
+
+def check_smem(nbytes: int, device: torch.device, what: str) -> None:
+    """Raise ValueError if a block cannot have ``nbytes`` of dynamic shared
+    memory on ``device`` (the opt-in limit; 232,448 bytes on an H100)."""
+    limit = load().sslap_smem_optin(device.index or 0)
+    if limit < 0:
+        check(-limit, what)
+    if nbytes > limit:
+        raise ValueError(f"{what} needs {nbytes} bytes of shared memory per "
+                         f"block; the card allows {limit}")

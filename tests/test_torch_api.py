@@ -374,7 +374,8 @@ def test_csr_to_csc_ignores_over_allocated_indices():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, sslap_tpu_torch, sslap_tpu_torch.hybrid; "
+    code = ("import sys, sslap_tpu_torch, sslap_tpu_torch.hybrid, "
+            "sslap_tpu_torch.ops.probe_gs; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sslap_tpu.')) or m == 'sslap_tpu']; "
             "assert not bad, bad; print('ok')")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch twin
-(K3 also against the native Gauss-Seidel engine), and the hybrid (square
-and rectangular) and device-mode solves on CUDA against the same solves on
-the CPU.
+(K3 also against the native Gauss-Seidel engine, with and without its
+prefetch), the GS micro-probe kernels (P1-P17) against their plain
+versions, and the hybrid (square and rectangular) and device-mode solves
+on CUDA against the same solves on the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs where only torch is
@@ -23,6 +24,7 @@ from sslap_tpu_torch import hybrid as PH
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import bid_topk, bid_topk_plain, commit, \
     commit_plain, gs_auction_device, gs_auction_plain
+from sslap_tpu_torch.ops import probe_gs as PG
 
 pytestmark = pytest.mark.cuda
 
@@ -180,6 +182,66 @@ def test_gs_kernel_matches_twin_and_native(dev, n, k):
     assert int(full[3]) == bids > n and int(full[4]) == 0
     np.testing.assert_array_equal(full[1].cpu().numpy(), owner)
     np.testing.assert_array_equal(_bits(full[0]), prices.view(np.int32))
+
+
+@pytest.mark.parametrize("scan", ["full", "const", "noprices"])
+def test_gs_kernel_prefetch_does_not_change_results(dev, scan):
+    """K3 with and without its row prefetch: identical outputs, equal to
+    the twin.  K = 40 puts two slots on some lanes; a 3-row ring wraps
+    while it drains, so the prefetch of a just-pushed row runs."""
+    for n, k, queued in ((2000, 40, 2000), (600, 8, 3)):
+        loc, val = _instance(n, seed=21, k=k)
+        prob = P.from_coo(loc, val, shape=(n, n))
+        vals_m = np.where(prob.valid, -prob.vals,
+                          neg_sentinel_np(np.float32))
+        queue = np.full(n + 1, -1, np.int32)
+        queue[:queued] = np.arange(queued)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        args = (t(prob.cols), t(vals_m), t(queue), queued,
+                t(np.zeros(n, np.float32)), t(np.full(n, -1, np.int32)),
+                np.float32(0.5), np.float32(1000.0),
+                10 ** 9 if scan == "full" else 3 * n)
+        outs = [fn(*args, prefetch=pf, _scan=scan) for fn, pf in (
+            (gs_auction_device, True), (gs_auction_device, False),
+            (gs_auction_plain, True))]
+        torch.cuda.synchronize()
+        for other in outs[1:]:
+            for a, b in zip(outs[0], other):
+                np.testing.assert_array_equal(_bits(a), _bits(b))
+        assert int(outs[0][3]) >= queued
+
+
+@pytest.mark.parametrize("name", list(PG.PROBES))
+def test_probe_kernel_matches_plain(dev, name):
+    kernel = PG.PROBES[name]
+    before = kernel.launches
+    got = PG.run(name, "cuda")
+    want = PG.run(name, "cuda", plain=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    PG.check(name, got)
+
+
+@pytest.mark.parametrize("unified", [True, False])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_ladder_kernels_at_scale(dev, stage, unified):
+    """n = m = 20,000, K = 10 (two 16-entry windows per row can straddle
+    a 128-entry line), random starting prices: kernel == plain version."""
+    n = 20_000
+    p0 = (np.random.default_rng(4).random(n) * 10).astype(np.float32)
+    args, kw = PG.ladder_inputs(n, n, 10, n + 1, unified=unified,
+                                stage=stage, prices=p0)
+    kernel = PG.gs_ladder_uni if unified else PG.gs_ladder
+    x = PG.to_device(args, dev)
+    got, want = kernel(*x, **kw), kernel.plain(*x, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert got[-2].tolist() == [n, 0]
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(problem="max")])

@@ -25,6 +25,7 @@ from sslap_tpu.native import auction_gs as native_gs
 from sslap_tpu.ops.gs_kernel import gs_auction_device as pallas_gs
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import gs_auction_device, gs_auction_plain
+from sslap_tpu_torch.ops.probe_gs import make_inputs
 from tests.utils import random_sparse_instance
 
 pytestmark = pytest.mark.skipif(not RH.native_available(),
@@ -91,15 +92,18 @@ def _run_native(csr, prices, owner, eps, bigp, max_bids):
 
 
 def _run_both(cols, pallas_vals, port_vals, queue, qcount, prices, owner,
-              eps, bigp, max_bids, run_pallas=True):
+              eps, bigp, max_bids, run_pallas=True, **kw):
+    """The twin and (unless run_pallas is False) the interpret-mode Pallas
+    K3 on one state; ``kw``: prefetch, _scan, passed to both."""
     port = gs_auction_plain(_t(cols), _t(port_vals), _t(queue), qcount,
-                            _t(prices), _t(owner), eps, bigp, max_bids)
+                            _t(prices), _t(owner), eps, bigp, max_bids, **kw)
     port = [np.asarray(x) for x in port]
     if not run_pallas:
         return port, None
     ref = pallas_gs(jnp.asarray(cols), jnp.asarray(pallas_vals),
                     jnp.asarray(queue), qcount, jnp.asarray(prices),
-                    jnp.asarray(owner), eps, bigp, max_bids, interpret=True)
+                    jnp.asarray(owner), eps, bigp, max_bids, interpret=True,
+                    **kw)
     ref = [np.asarray(x) for x in ref]
     np.testing.assert_array_equal(_bits(port[0]), _bits(ref[0]))
     for a, b in zip(port[1:], ref[1:]):
@@ -125,6 +129,48 @@ def test_twin_matches_pallas_and_native(kind):
     assert int(port[4]) == 0 and int(port[3]) == bids > n
     np.testing.assert_array_equal(port[1], o_nat)
     np.testing.assert_array_equal(_bits(port[0]), _bits(p_nat))
+
+
+@pytest.mark.parametrize("scan", ["full", "const", "noprices"])
+@pytest.mark.parametrize("prefetch", [True, False])
+@pytest.mark.parametrize("kind", ["gs_run", "random", "single_entry_rows",
+                                  "zero_costs"])
+def test_prefetch_and_scan_stubs_match_pallas(kind, prefetch, scan):
+    """Every (prefetch, _scan) of the reference's surface, on the probes'
+    _gs_run instance (probe_mosaic_gs.py:272-291) and on the instances
+    above.  The stub scans need not terminate (rows trade one column), so
+    they run 2,000 bids; their 10**6-bid probe runs are in
+    test_torch_probe_gs.py."""
+    if kind == "gs_run":
+        (cols, vals, queue, n, prices, owner, eps, bigp, _), _ = \
+            make_inputs("gs_small")
+        pallas_vals = port_vals = vals
+    else:
+        prob, eps = _instance(kind)
+        _, cols, pallas_vals, port_vals, bigp = _inputs(prob)
+        n = prob.n
+        queue = np.full(n + 1, -1, np.int32)
+        queue[:n] = np.arange(n)
+        prices = np.zeros(n, np.float32)
+        owner = np.full(n, -1, np.int32)
+    max_bids = 10 ** 7 if scan == "full" else 2000
+    port, _ = _run_both(cols, pallas_vals, port_vals, queue, n, prices,
+                        owner, eps, bigp, max_bids, prefetch=prefetch,
+                        _scan=scan)
+    if scan == "full":
+        assert int(port[4]) == 0 and int(port[3]) >= n
+    else:
+        assert int(port[3]) >= n
+
+
+def test_unknown_scan_raises():
+    (cols, vals, queue, n, prices, owner, eps, bigp, max_bids), _ = \
+        make_inputs("gs_small")
+    args = [_t(a) for a in (cols, vals, queue)] + [n] + \
+        [_t(a) for a in (prices, owner)] + [eps, bigp, max_bids]
+    for fn in (gs_auction_device, gs_auction_plain):
+        with pytest.raises(ValueError, match="_scan"):
+            fn(*args, _scan="top1")
 
 
 def test_bid_cap_stops_mid_queue():
