@@ -7,19 +7,32 @@ of which raises on failure (so the exit code is non-zero):
 
   1. device   -- a CUDA device must exist; prints its name and power limit
   2. build    -- compiles the hand-written kernels (ops/csrc/*.cu) with nvcc
-  3. kernels  -- each kernel against its plain PyTorch twin on the card at
-                 the main path's shapes (K = 10, n = m = 1M; C = 256, 3072
-                 and 1M), float32 and int32, plus a tie-heavy resolve case.
+  3. kernels  -- K1 and K2 against their plain PyTorch twins on the card
+                 at their shapes (K = 10, n = m = 1M; C = 256, 3072 and
+                 1M), float32 and int32, plus a tie-heavy resolve case.
                  Tolerance: exact (targets, winners, owner and sigma equal;
                  bids and prices bit for bit).  Times from CUDA events,
-                 median of reps.
+                 median of reps.  Then the ladder kernel (ops.ladder_phase,
+                 one launch per eps phase) against its plain version (the
+                 host loop over K1's and K2's plain versions) on the
+                 headline's device pass (the instance of phase 5, built
+                 here): the first three phases (max_phases=2) and, when the
+                 plain version's estimate is under PLAIN_WHOLE_SECONDS, the
+                 whole pass; exact on sigma, owner, prices bits, rounds,
+                 phases and tier_rounds
   4. parity   -- the port on CUDA against the port on the CPU at 20k x 20k
                  (identical solution, prices and round counts), and a
                  2k x 2k integer instance against scipy's optimum
   5. headline -- the 1M x 1M, ~10 nnz/row float32 instance (bench.py's
                  generator and seed) through AuctionSolver(mode="hybrid",
                  device="cuda"), cold and then cached, held against the
-                 port's own mode="cpu" solve: |obj - obj_cpu| <= n * eps_min
+                 port's own mode="cpu" solve: |obj - obj_cpu| <= n * eps_min.
+                 The cold solve must make one ladder launch per phase and
+                 no K1/K2 launch; it prints device_time, ms/round, its,
+                 tier_rounds, host bids and the ladder's per-round cost
+                 above and below its one-block tail (%globaltimer), and a
+                 torch.profiler window over one cached device pass prints
+                 the device's idle share
   6. gs       -- K3 (ops.gs_auction_device) on the headline's tail: the
                  square hybrid's device pass is rebuilt from the package's
                  functions, owner derived, the unassigned rows with entries
@@ -58,16 +71,24 @@ of which raises on failure (so the exit code is non-zero):
                  1M bids
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
-counted on its path (K1, K2: the cold headline solve; K3: the two tail
-runs; P1-P17: the probe suite), and its time and its plain version's time
-(K1, K2: C = 1M, float32; K3: the first 20,000 bids of the tail, with
-ms_noprefetch beside; P1-P17: the reference shapes, P16/P17 at stage 3,
-with ns/iteration or ns/bid of the scaled runs beside).  The last line is
+counted on its path (the ladder: the cold headline solve; K1, K2: the
+rectangular hybrid of phase 7, their path since the square hybrid runs the
+ladder; K3: the two tail runs; P1-P17: the probe suite), its time and its
+plain version's time (K1, K2: C = 1M, float32; the ladder: the pass of
+phase 3; K3: the first 20,000 bids of the tail, with ms_noprefetch beside;
+P1-P17: the reference shapes, P16/P17 at stage 3, with ns/iteration or
+ns/bid of the scaled runs beside), its bound (bound_ms, bound_by,
+bound_bytes: each input read once and each output written once on that
+run's data, over 3.35 TB/s, or its operations over 67 TFLOP/s) and the
+time of one PyTorch call computing the same function where there is one
+(library_ms: scatter_reduce_ amax for K2's resolve, index_select for the
+row copies of P1-P3, P6 and P9; else null).  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import time
@@ -78,9 +99,12 @@ import torch
 from sslap_tpu_torch import AuctionSolver, _native
 from sslap_tpu_torch import auction as A
 from sslap_tpu_torch import compact as C
+from sslap_tpu_torch import hybrid as H
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_plain, commit, \
-    commit_plain, gs_auction_device, gs_auction_plain
+    commit_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
+    ladder_phase_plain
+from sslap_tpu_torch.ops import ladder as L
 from sslap_tpu_torch.ops import probe_gs as PG
 
 N_HEAD = 1_000_000
@@ -98,7 +122,17 @@ KERNELS = {
     "gs_auction_device": {"route": "cuda",
                           "source": "sslap_tpu_torch/ops/csrc/gs.cu",
                           "replaces": "sslap_tpu/ops/gs_kernel.py:64"},
+    "ladder": {"route": "cuda",
+               "source": "sslap_tpu_torch/ops/csrc/ladder.cu",
+               "replaces": "sslap_tpu/ops/bid.py:59 + "
+                           "sslap_tpu/ops/commit.py:26"},
 }
+# The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
+# device memory rate and float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+PLAIN_WHOLE_SECONDS = 30.0    # the ladder's plain version runs the whole
+                              # headline pass when estimated below this
 GS_TWIN_BIDS = 20_000         # K3 against its twin over this prefix
 GS_STUB_BIDS = 1_000_000      # the _scan stubs' timed runs on the tail
 GS_MAX_SECONDS = 60.0         # above this, K3 and native stop at one cap
@@ -240,6 +274,15 @@ def _abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def _bound(nbytes, nops=0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes))
+
+
 def _median_ms(prepare, run, reps: int) -> float:
     """Median device time of run(*prepare()) over reps, CUDA events around
     the call only (inputs are prepared outside the timed window)."""
@@ -342,10 +385,48 @@ def _check_ties(rng, st, dtype, keys, dev):
     return int(out_k[2][0])
 
 
+def _k12_bounds(st, ids, reps):
+    """Bounds of K1 and K2 on one phase-start round's inputs (each input
+    read once: the live rows, the distinct columns they touch; each output
+    written once: tgt, bid, stay, evicted, the changed table entries), and
+    the one PyTorch call that computes K2's resolve, scatter_reduce_ amax
+    on the 64-bit (bid, ~row) keys, timed (K1 has none)."""
+    n, m, K = st["n"], st["m"], st["cols"].shape[1]
+    C = ids.shape[0]
+    p, s, o = (st[k].clone() for k in ("prices", "sigma", "owner"))
+    tgt, bid = bid_topk_plain(ids, st["cols"], st["vals_m"], st["nvalid"],
+                              p, s, o, st["eps"], st["bigp"],
+                              phase_start=True)
+    rows = ids[ids < n].long()
+    ucols = torch.unique(st["cols"][rows]).numel()
+    viol = int((s != st["sigma"]).sum()) + int((o != st["owner"]).sum())
+    k1 = _bound(4 * C + rows.numel() * (8 * K + 8) + 4 * ucols + 8 * C
+                + 4 * viol, 3 * rows.numel() * K)
+    p2, o2, s2 = p.clone(), o.clone(), s.clone()
+    commit_plain(ids, tgt, bid, p2, o2, s2)
+    bidding = tgt < m
+    U = torch.unique(tgt[bidding]).numel()
+    changed = int((p2.view(torch.int32) != p.view(torch.int32)).sum()
+                  + (o2 != o).sum() + (s2 != s).sum())
+    k2 = _bound(20 * C + 20 * U + 4 * changed + 12, int(bidding.sum()))
+    # (order bits - 2^31) * 2^32 + (2^32 - 1 - row): signed int64 order ==
+    # the kernel's unsigned key order
+    b = torch.where(bid == 0, torch.zeros_like(bid), bid)
+    u = b.view(torch.int32).long() & 0xFFFFFFFF
+    hi = torch.where(u >= 2 ** 31, 0xFFFFFFFF - u, u + 2 ** 31)
+    key = (hi - 2 ** 31) * 2 ** 32 + (0xFFFFFFFF - ids.long())
+    best = torch.zeros(m + 1, dtype=torch.int64, device=ids.device)
+    idx = tgt.long()
+    lib_ms = _median_ms(lambda: (), lambda: best.scatter_reduce_(
+        0, idx, key, "amax"), reps)
+    return k1, k2, lib_ms
+
+
 def phase_kernels(n=N_HEAD, K=K_HEAD, capacities=(256, 3072, N_HEAD),
                   seed=0):
-    """Every kernel against its twin on the card; returns (max abs error
-    per kernel, times at C = n float32)."""
+    """K1 and K2 against their twins on the card; returns (max abs error
+    per kernel, times at C = n float32 with their bounds and library
+    times)."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(seed)
     errs = {"bid_topk": 0.0, "commit": 0.0}
@@ -366,6 +447,12 @@ def phase_kernels(n=N_HEAD, K=K_HEAD, capacities=(256, 3072, N_HEAD),
                 f"ms (twin {t['commit_plain']:.4f} ms); exact")
             if C == n and dtype == np.float32:
                 headline = t
+                k1, k2, lib_ms = _k12_bounds(st, ids, reps)
+                headline["bounds"] = {"bid_topk": k1, "commit": k2}
+                headline["library"] = {"bid_topk": None, "commit": lib_ms}
+                log(f"[3 kernels] bound at C={C}: bid_topk {k1}, commit "
+                    f"{k2}; scatter_reduce_ amax (K2's resolve) "
+                    f"{lib_ms:.4f} ms")
         won = _check_ties(rng, st, dtype, keys, dev)
         log(f"[3 kernels] {np.dtype(dtype).name} ties/+-0/negative bids "
             f"C=3072: {won} won; exact")
@@ -419,7 +506,9 @@ def phase_parity(n=20_000) -> None:
     log(f"[4 parity] {n2}x{n2} int32 on CUDA: objective {want} == scipy")
 
 
-def phase_headline(n=N_HEAD):
+def headline_solver(n=N_HEAD):
+    """The headline instance and its AuctionSolver (ingest done, nothing
+    solved)."""
     t0 = time.perf_counter()
     rr, cc, vv = make_instance(n, n, 9, seed=0)
     nnz = rr.shape[0]
@@ -428,28 +517,187 @@ def phase_headline(n=N_HEAD):
     loc = np.stack([rr, cc], 1)
     solver = AuctionSolver(loc=loc, val=vv, shape=(n, n), mode="hybrid",
                            device=DEVICE)
-    log(f"[5 headline] {n}x{n}, nnz {nnz}: instance + ingest "
+    log(f"[3 ladder] headline {n}x{n}, nnz {nnz}: instance + ingest "
         f"{time.perf_counter() - t0:.2f} s")
+    return solver, loc, vv
+
+
+def headline_inputs(solver):
+    """The square hybrid's device-pass inputs on the headline, built as
+    hybrid.solve_hybrid builds them (transform, eps schedule, CSR bigp,
+    trunc, fine ladder, wide-loop guard), on the card, outside the
+    solver's device cache."""
+    prob = solver.problem_spec
+    n, m = prob.n, prob.m
+    dtype = prob.vals.dtype
+    vmax_abs = float(np.abs(prob.vals[prob.valid]).max())
+    tr = A.make_transform("min", m, dtype, vmax_abs)
+    e0, e_min, theta = A.default_eps_schedule(
+        dtype, vmax_abs, m, tr.scale, theta=A.device_theta_default(n))
+    csr = H.ell_to_csr_transformed(prob, tr.sign, tr.scale)
+    bigp = (csr[2].max() - csr[2].min()) + 1.0
+    trunc = min(256, max(n // 8, 1))
+    _, ell = H._device_ell(prob, tr, torch.device(DEVICE), None)
+    return dict(ell=ell, csr=csr, n=n, m=m, K=prob.cols.shape[1], e0=e0,
+                e_min=e_min, theta=theta, bigp=bigp, trunc=trunc,
+                tiers=C.default_tiers(n, fine=True, floor=trunc),
+                wide=n >= 400_000 and H._wide_layout_ok(prob.cols,
+                                                       prob.valid, m))
+
+
+def headline_device_pass(inp, **kw):
+    """compact.solve_tiered as the square hybrid calls it on the headline
+    (same schedule, ladder, trunc, mixed tail, wide loop): the state the
+    host finisher starts from.  Returns (SolveResult, TieredState)."""
+    cols_d, vals_d, nvalid_d = inp["ell"]
+    return C.solve_tiered(
+        cols_d, vals_d, nvalid_d, torch.zeros(inp["m"], device=cols_d.device),
+        inp["e0"], inp["e_min"], inp["theta"], A.default_max_iter(inp["n"]),
+        bigp=inp["bigp"], tiers=inp["tiers"], trunc=inp["trunc"],
+        theta_tail=np.float32(3.0), tail_phases=2, wide=inp["wide"], **kw)
+
+
+@contextlib.contextmanager
+def _plain_ladder():
+    """The tiered solve with its phase op swapped for the op's plain
+    version (the host loop over K1's and K2's plain versions and a torch
+    sort), on the same CUDA tensors."""
+    C.ladder_phase = ladder_phase_plain
+    try:
+        yield
+    finally:
+        C.ladder_phase = ladder_phase
+
+
+def _same_pass(a, b) -> bool:
+    (ra, sa), (rb, sb) = a, b
+    return (torch.equal(ra.sigma, rb.sigma) and _same_bits(ra.prices,
+                                                          rb.prices)
+            and torch.equal(sa.owner, sb.owner) and ra.rounds == rb.rounds
+            and ra.phases == rb.phases and sa.tier_rounds == sb.tier_rounds
+            and ra.unassigned == rb.unassigned)
+
+
+def phase_ladder(inp):
+    """The ladder kernel (ops.ladder_phase) against its plain version on
+    the card, on the headline's device pass: three phases (the first, then
+    max_phases=2), exact on sigma, owner, prices bits, rounds, phases and
+    tier_rounds; and, when the plain version's estimate for the whole pass
+    is under PLAIN_WHOLE_SECONDS, the whole pass (the plain version
+    resumed from its three-phase state).  Returns the kernels-line entry
+    numbers."""
+    def run(plain, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _plain_ladder() if plain else contextlib.nullcontext():
+            out = headline_device_pass(inp, **kw)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    whole_k, whole_k_ms = run(False)
+    part_k, k_ms = run(False, max_phases=2)
+    part_p, p_ms = run(True, max_phases=2)
+    if not _same_pass(part_k, part_p):
+        raise AssertionError("ladder kernel != its plain version over the "
+                             "headline's first three phases")
+    err = _abs_err(part_k[0].prices, part_p[0].prices)
+    rounds = part_k[0].rounds
+    log(f"[3 ladder] headline, phases 1-3 (max_phases=2): kernel "
+        f"{k_ms:.1f} ms, plain {p_ms:.1f} ms over {rounds} rounds "
+        f"({p_ms / rounds:.3f} ms/round); tier_rounds "
+        f"{part_k[1].tier_rounds}; exact (sigma, owner, prices bits, "
+        f"rounds, tier_rounds)")
+    est_s = 1e-3 * p_ms * whole_k[0].rounds / rounds
+    whole = est_s < PLAIN_WHOLE_SECONDS
+    if whole:
+        rest_p, rest_ms = run(True, init_state=part_p[1])
+        if not _same_pass(whole_k, rest_p):
+            raise AssertionError("ladder kernel != its plain version over "
+                                 "the headline's whole device pass")
+        err = max(err, _abs_err(whole_k[0].prices, rest_p[0].prices))
+        k_ms, p_ms = whole_k_ms, p_ms + rest_ms
+        log(f"[3 ladder] headline, whole pass ({whole_k[0].phases} phases, "
+            f"{whole_k[0].rounds} rounds): kernel {k_ms:.1f} ms, plain "
+            f"{p_ms:.1f} ms; exact")
+    else:
+        log(f"[3 ladder] plain version on the whole pass estimated at "
+            f"{est_s:.0f} s: compared over phases 1-3 only")
+    n, m, K = inp["n"], inp["m"], inp["K"]
+    # each input read once (cols, vals_m, nvalid, prices, owner, sigma),
+    # each output written once (prices, owner, sigma)
+    bound = _bound(8 * n * K + 4 * n + 2 * (8 * m + 4 * n))
+    log(f"[3 ladder] bound {bound}")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=None,
+                compared="whole pass" if whole else "phases 1-3", **bound)
+
+
+def _idle_share(inp) -> None:
+    """torch.profiler over one cached device pass: the device's busy time
+    (the sum of its kernels', copies' and memsets' self time) against the
+    window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    bid_topk.launches = 0
-    commit.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res, _ = headline_device_pass(inp)
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"[5 headline] profiler, one cached device pass ({res.rounds} "
+        f"rounds): window {window_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms, idle share {1 - busy_us / window_us:.3f}; "
+        f"top: " + ", ".join(f"{e.key[:40]} "
+                             f"{e.self_device_time_total / 1e3:.2f} ms "
+                             f"x{e.count}" for e in top))
+
+
+def _reset_ladder_counts() -> None:
+    bid_topk.launches = commit.launches = ladder_phase.launches = 0
+    for k in ladder_phase.stats:
+        ladder_phase.stats[k] = 0
+
+
+def _per_round(stats) -> str:
+    """The ladder kernel's per-round cost above and below its one-block
+    tail, and the stage A (bid + resolve) part of it."""
+    parts = []
+    for side, label in (("grid", "grid"), ("tail", "one-block tail")):
+        r = max(stats[f"{side}_rounds"], 1)
+        parts.append(f"{label} rounds {stats[f'{side}_rounds']} at "
+                     f"{stats[f'{side}_ns'] / r / 1e3:.2f} us/round (stage A "
+                     f"{stats[f'{side}_a_ns'] / r / 1e3:.2f} us)")
+    return ", ".join(parts)
+
+
+def phase_headline(solver, loc, vv, inp):
+    n = solver.problem_spec.n
+    torch.cuda.synchronize()
+    _reset_ladder_counts()
     t0 = time.perf_counter()
     cold = solver.solve()
     cold_s = time.perf_counter() - t0
-    launches = {"bid_topk": bid_topk.launches, "commit": commit.launches}
+    launches = {"ladder": ladder_phase.launches}
+    k12 = (bid_topk.launches, commit.launches)
+    stats = {"cold": dict(ladder_phase.stats)}
+    _reset_ladder_counts()
     t0 = time.perf_counter()
     warm = solver.solve()
     warm_s = time.perf_counter() - t0
+    stats["cached"] = dict(ladder_phase.stats)
     for name, res, secs in (("cold", cold, cold_s), ("cached", warm,
                                                       warm_s)):
         m = res["meta"]
         log(f"[5 headline] {name}: {secs:.3f} s; device {m['device_time']:.3f}"
             f" s, readback {m['readback_time']:.4f} s, host GS "
-            f"{m['host_gs_time']:.3f} s; its {m['its']} (device "
+            f"{m['host_gs_time']:.3f} s; its {m['its']} (PR 1: 7357; device "
             f"{1e3 * m['device_time'] / m['its']:.4f} ms/round), "
-            f"host_bids {m['host_bids']}, phases {m['phases']}, obj "
-            f"{m['obj']!r}")
+            f"host_bids {m['host_bids']} (PR 1: 957412), phases "
+            f"{m['phases']}, obj {m['obj']!r}")
         log(f"[5 headline] {name} tier_rounds {m['tier_rounds']}")
+        log(f"[5 headline] {name} ladder kernel: {_per_round(stats[name])}")
     if not (cold["meta"]["soln_found"] and warm["meta"]["soln_found"]):
         raise AssertionError("headline solve found no solution")
     sol = cold["sol"]
@@ -459,8 +707,11 @@ def phase_headline(n=N_HEAD):
             and np.array_equal(cold["prices"].view(np.int32),
                                warm["prices"].view(np.int32))):
         raise AssertionError("cached re-solve differs from the cold solve")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    if launches["ladder"] != cold["meta"]["phases"] or k12 != (0, 0):
+        raise AssertionError(f"ladder launches {launches['ladder']} for "
+                             f"{cold['meta']['phases']} phases; K1, K2 "
+                             f"standalone launches {k12} (want 0)")
+    _idle_share(inp)
     t0 = time.perf_counter()
     cpu = AuctionSolver(loc=loc, val=vv, shape=(n, n), mode="cpu",
                         cardinality_check=False).solve()
@@ -472,8 +723,9 @@ def phase_headline(n=N_HEAD):
         f"= {bound!r}: {gap <= bound}")
     if not (cpu["meta"]["soln_found"] and gap <= bound):
         raise AssertionError("headline objective disagrees with mode='cpu'")
-    log(f"[5 headline] launches during the cold solve: {launches}")
-    return launches, solver
+    log(f"[5 headline] launches during the cold solve: ladder "
+        f"{launches['ladder']} (one per phase), K1 {k12[0]}, K2 {k12[1]}")
+    return launches, cold["meta"]["its"]
 
 
 # ---------------------------------------------------------------------------
@@ -492,43 +744,34 @@ def _events_ms(fn):
     return out, t0.elapsed_time(t1)
 
 
-def headline_device_pass(solver):
-    """The square hybrid's device pass on the headline, as
-    hybrid.solve_hybrid calls compact.solve_tiered (same schedule, ladder,
-    trunc, wide loop; the solver's cached problem data): the state the host
-    finisher starts from."""
-    prob = solver.problem_spec
-    cache = solver._device_cache
-    cols_d, vals_d, nvalid_d = cache["ell"]
-    indptr, indices, data = cache["csr"]
-    n, m = prob.n, prob.m
-    dtype = prob.vals.dtype
-    vmax_abs = float(np.abs(prob.vals[prob.valid]).max())
-    tr = A.make_transform("min", m, dtype, vmax_abs)
-    e0, e_min, theta = A.default_eps_schedule(
-        dtype, vmax_abs, m, tr.scale, theta=A.device_theta_default(n))
-    bigp = (data.max() - data.min()) + 1.0
-    trunc = min(256, max(n // 8, 1))
-    res, _ = C.solve_tiered(
-        cols_d, vals_d, nvalid_d, torch.zeros(m, device=cols_d.device),
-        e0, e_min, theta, A.default_max_iter(n), bigp=bigp,
-        tiers=C.default_tiers(n, fine=True, floor=trunc), trunc=trunc,
-        theta_tail=np.float32(3.0), tail_phases=2,
-        wide=cache.get("wide", False))
-    return res, e_min, bigp, (indptr, indices, data), (cols_d, vals_d,
-                                                       nvalid_d)
+def _k3_bound(state, out):
+    """K3's bound on one run: each input read once (the queue slots
+    popped, the rows that bid, prices and owner at the columns those rows
+    hold), each output written once (pushed slots, changed prices and
+    owner entries).  No wrap of the ring: popped slots are 0..bids-1."""
+    cols_d, _, _, qcount, prices, owner = state[:6]
+    K = cols_d.shape[1]
+    bids, left = int(out[3]), int(out[4])
+    rows = torch.unique(out[2][:bids].long())
+    ucols = torch.unique(cols_d[rows]).numel()
+    pushes = left + bids - qcount
+    changed = int((out[0].view(torch.int32) != prices.view(torch.int32)).sum()
+                  + (out[1] != owner).sum())
+    return _bound(4 * bids + 8 * K * rows.numel() + 8 * ucols + 4 * pushes
+                  + 4 * changed + 16, 3 * K * bids)
 
 
-def phase_gs(solver, cold_its):
+def phase_gs(inp, cold_its):
     """K3 against its twin, then K3 against the native forward GS, on the
     headline's tail state, with its row prefetch on and off; then the
     reference's _scan stubs on the same state.  Returns (max abs error vs
     the twin, K3 ms with and without prefetch and twin ms over the first
     GS_TWIN_BIDS bids, launches in the tail runs, us/bid per (scan,
-    prefetch))."""
+    prefetch), K3's bound over the first GS_TWIN_BIDS bids)."""
     t0 = time.perf_counter()
-    res, e_min, bigp, csr, (cols_d, vals_d, nvalid_d) = \
-        headline_device_pass(solver)
+    res, _ = headline_device_pass(inp)
+    e_min, bigp, csr = inp["e_min"], inp["bigp"], inp["csr"]
+    cols_d, vals_d, nvalid_d = inp["ell"]
     torch.cuda.synchronize()
     if res.rounds != cold_its:
         raise AssertionError(f"rebuilt device pass ran {res.rounds} rounds, "
@@ -563,6 +806,8 @@ def phase_gs(solver, cold_its):
             raise AssertionError(f"gs_auction_device(prefetch={prefetch}) "
                                  f"differs from its twin")
         err = max(err, _abs_err(got[0], want[0]))
+    bound = _k3_bound(state, want)
+    log(f"[6 gs] bound over the first {GS_TWIN_BIDS} bids: {bound}")
     us_per_bid = 1e3 * max(k3_ms.values()) / GS_TWIN_BIDS
     log(f"[6 gs] first {GS_TWIN_BIDS} bids: K3 prefetch {k3_ms[True]:.3f} ms"
         f" ({1e3 * k3_ms[True] / GS_TWIN_BIDS:.3f} us/bid), no prefetch "
@@ -634,7 +879,7 @@ def phase_gs(solver, cold_its):
             log(f"[6 gs] tail, K3 _scan={scan} prefetch={prefetch}: "
                 f"{int(out[3])} bids, {us[(scan, prefetch)]:.3f} us/bid; "
                 f"== twin over {GS_TWIN_BIDS} bids")
-    return err, k3_ms[True], k3_ms[False], twin_ms, launches, us
+    return err, k3_ms[True], k3_ms[False], twin_ms, launches, us, bound
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +893,8 @@ def _meta_line(m):
 
 
 def phase_rect(n=100_000, m=200_000):
+    """Returns the K1 and K2 launches of its hybrid solve: their path since
+    the square hybrid's device pass runs the ladder kernel."""
     loc, val = make_sparse(n, m, 10, seed=11, high=10_000)
     kw = dict(loc=loc, val=val, shape=(n, m))
     bid_topk.launches = commit.launches = 0
@@ -681,15 +928,19 @@ def phase_rect(n=100_000, m=200_000):
         f"{bound!r}: {gap <= bound}; equal: {gap == 0}")
     if gap > bound:
         raise AssertionError("rectangular hybrid objective out of bound")
+    return {"bid_topk": launches[0], "commit": launches[1]}
 
 
 def _parity(name, loc, val, shape, **kw):
-    bid_topk.launches = commit.launches = 0
+    """CUDA against CPU, bit for bit.  The Jacobi driver launches K1 and
+    K2 once a round; mode='device' on a square problem takes the tiered
+    solve, one ladder launch per phase and no K1/K2 launch."""
+    _reset_ladder_counts()
     t0 = time.perf_counter()
     g = AuctionSolver(loc=loc, val=val, shape=shape, device=DEVICE,
                       **kw).solve()
     g_s = time.perf_counter() - t0
-    launches = (bid_topk.launches, commit.launches)
+    launches = (bid_topk.launches, commit.launches, ladder_phase.launches)
     t0 = time.perf_counter()
     c = AuctionSolver(loc=loc, val=val, shape=shape, device="cpu",
                       **kw).solve()
@@ -702,11 +953,15 @@ def _parity(name, loc, val, shape, **kw):
                 "its", "phases", "host_bids", "final_eps", "unassigned",
                 "obj"))):
         raise AssertionError(f"port on CUDA != port on CPU ({name})")
-    if min(launches) <= 0 or launches[0] != gm["its"]:
-        raise AssertionError(f"{name}: launches {launches}, its {gm['its']}")
+    tiered = kw.get("mode") == "device" and shape[0] == shape[1]
+    want = ((0, 0, gm["phases"]) if tiered
+            else (gm["its"], gm["its"], 0))
+    if launches != want or gm["its"] <= 0:
+        raise AssertionError(f"{name}: launches (K1, K2, ladder) {launches},"
+                             f" want {want}")
     log(f"[8 jacobi] {name}: CUDA {g_s:.3f} s == CPU {c_s:.3f} s (sol, "
         f"prices bitwise, {_meta_line(gm)}); launches K1 {launches[0]}, "
-        f"K2 {launches[1]}")
+        f"K2 {launches[1]}, ladder {launches[2]}")
 
 
 def phase_jacobi():
@@ -751,10 +1006,54 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+_QUEUE_ROW_READS = {"while_qtable_dma_store": 16 / 12, "qdma_dual": 2,
+                    "qdma_store_datadep": 2, "qdma_store_via_dma": 2}
+
+
+def _probe_bound(name, x, out):
+    """A probe's bound on its inputs ``x`` and outputs: each output written
+    once, and what its loop must read of its inputs once (P1-P3 two
+    512-byte rows; P4-P5 the table it copies; P6-P15 a 512-byte row per
+    iteration, two where the variant reads two (or a row of each table),
+    plus the queue entry and the price / owner entries it reads; P16-P17
+    per bid the queue slot, the row's first column and value, the price
+    and the owner)."""
+    written = sum(t.numel() * t.element_size() for t in out)
+    if name.startswith("dma_"):
+        read = 2 * PG.LINE * 4
+    elif name.startswith("lane_"):
+        read = x[1].numel() * 4
+    elif name.startswith(("gs_uni", "gs_ladder")):
+        read = int(out[-2][0]) * 20
+    else:
+        n_it = x[0][0]
+        per = 4 * PG.LINE * _QUEUE_ROW_READS.get(name, 1)
+        if name not in ("while_double_buffer", "sem_2d_dynamic"):
+            per += 4
+        per += {"qdma_alias3": 8, "qdma_alias2": 4}.get(name, 0)
+        read = n_it * per
+    return _bound(read + written)
+
+
+def _probe_library_ms(name, x):
+    """One PyTorch call that computes the probe's copy: index_select of
+    the rows it copies (P1-P3: rows row, row + 1; P6, P9: rows 2i, 2i + 1
+    for i < n); None for the others."""
+    if name.startswith("dma_"):
+        rows = torch.arange(x[0][0], x[0][0] + 2, device=x[1].device)
+    elif name in ("while_double_buffer", "sem_2d_dynamic"):
+        rows = torch.arange(2 * x[0][0], device=x[1].device)
+    else:
+        return None
+    torch.index_select(x[1], 0, rows)           # warm up: first-call setup
+    torch.cuda.synchronize()
+    return _timed(lambda: torch.index_select(x[1], 0, rows))[1]
+
+
 def _probe_against_plain(name, dev):
     """Probe ``name`` at its reference shapes: kernel == plain version bit
     for bit, the reference's asserts; (max abs error, kernel ms, plain
-    ms)."""
+    ms, bound, library ms)."""
     kernel = PG.PROBES[name]
     plain = PG.plain_of(kernel)
     args, kw = PG.make_inputs(name)
@@ -769,9 +1068,13 @@ def _probe_against_plain(name, dev):
     PG.check(name, got)
     err = max(_abs_err(a.reshape(-1), b.reshape(-1))
               for a, b in zip(got, want))
+    bound = (None if kernel is gs_auction_device
+             else _probe_bound(name, x, got))
+    lib_ms = None if bound is None else _probe_library_ms(name, x)
     log(f"[9 probes] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
-        f"exact, the reference's asserts hold")
-    return err, k_ms, p_ms
+        f"exact, the reference's asserts hold; bound {bound}, library "
+        f"{lib_ms}")
+    return err, k_ms, p_ms, bound, lib_ms
 
 
 def _pump_against_start_wait(dev):
@@ -863,12 +1166,12 @@ def phase_probes():
     entries = []
     for key, kernel in PG.KERNELS.items():
         names = [nm for nm, k in PG.PROBES.items() if k is kernel]
-        _, k_ms, p_ms = per_probe[names[-1]]
+        _, k_ms, p_ms, bound, lib_ms = per_probe[names[-1]]
         entry = dict(name=f"{key} {kernel.name}", route="cuda",
                      source=kernel.source, replaces=kernel.replaces,
                      launches=launches[key],
                      max_abs_err=max(per_probe[nm][0] for nm in names),
-                     ms=k_ms, plain_ms=p_ms)
+                     ms=k_ms, plain_ms=p_ms, **bound, library_ms=lib_ms)
         if kernel.name in pump:
             entry["ns_per_iter_500k"] = pump[kernel.name]
         if kernel in (PG.gs_ladder_uni, PG.gs_ladder):
@@ -882,23 +1185,36 @@ def main() -> None:
     phase_device()
     phase_build()
     errs, times = phase_kernels()
+    solver, loc, vv = headline_solver()
+    inp = headline_inputs(solver)
+    ladder = phase_ladder(inp)
     phase_parity()
-    launches, solver = phase_headline()
+    launches, cold_its = phase_headline(solver, loc, vv, inp)
+    del solver
     name = "gs_auction_device"
     errs[name], times[name], k3_noprefetch_ms, times[name + "_plain"], \
-        launches[name], k3_us = phase_gs(solver, solver.meta["its"])
-    del solver
-    phase_rect()
+        launches[name], k3_us, k3_bound = phase_gs(inp, cold_its)
+    del inp
+    launches.update(phase_rect())
     phase_jacobi()
     probes = phase_probes()
-    kernels = [dict(name=name, **KERNELS[name], launches=launches[name],
-                    max_abs_err=errs[name], ms=times[name],
-                    plain_ms=times[name + "_plain"])
-               for name in KERNELS]
-    kernels[-1]["ms_noprefetch"] = k3_noprefetch_ms
-    kernels[-1]["tail_us_per_bid"] = {
-        f"{scan}{'' if pf else ' noprefetch'}": v
-        for (scan, pf), v in k3_us.items()}
+    kernels = []
+    for name in ("bid_topk", "commit"):
+        kernels.append(dict(
+            name=name, **KERNELS[name], launches=launches[name],
+            max_abs_err=errs[name], ms=times[name],
+            plain_ms=times[name + "_plain"], **times["bounds"][name],
+            library_ms=times["library"][name]))
+    name = "gs_auction_device"
+    kernels.append(dict(
+        name=name, **KERNELS[name], launches=launches[name],
+        max_abs_err=errs[name], ms=times[name],
+        plain_ms=times[name + "_plain"], **k3_bound, library_ms=None,
+        ms_noprefetch=k3_noprefetch_ms,
+        tail_us_per_bid={f"{scan}{'' if pf else ' noprefetch'}": v
+                         for (scan, pf), v in k3_us.items()}))
+    kernels.append(dict(name="ladder", **KERNELS["ladder"],
+                        launches=launches["ladder"], **ladder))
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

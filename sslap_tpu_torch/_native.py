@@ -1,12 +1,10 @@
-"""The shared C++ host runtime, reached without importing the JAX package.
+"""The port's C++ host runtime (``native/``) and its numpy fallback
+(``gs_host.py``).
 
-``sslap_tpu/__init__.py`` imports jax (through its ``api`` module), and the
-GPU deployment has no jax.  ``sslap_tpu/native/build.py`` itself imports
-only ctypes, numpy and the standard library, so it is loaded here by file
-path: the port gets the one C++ source (``sslap_native.cpp``, compiled
-with g++ into ``sslap_tpu/native/_build/``) and its ctypes wrappers, with
-no copy.  ``sslap_tpu/gs_host.py`` (pure numpy) is loaded the same way as
-the no-toolchain fallback of the Gauss-Seidel engine.
+Both are the port's own copies of ``sslap_tpu/native/`` and
+``sslap_tpu/gs_host.py``: the GPU deployment has no jax, and the port
+imports nothing of the JAX package.  The library is compiled with g++
+into ``sslap_tpu_torch/_build/native/`` at first import.
 
 Every wrapper is None when the native library could not be built; callers
 fall back to numpy, as the JAX package's callers do.
@@ -14,22 +12,8 @@ fall back to numpy, as the JAX package's callers do.
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
-
-_REF = Path(__file__).resolve().parent.parent / "sslap_tpu"
-
-
-def _load_by_path(name: str, path: Path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-_build = _load_by_path("_sslap_tpu_torch_native_build",
-                       _REF / "native" / "build.py")
-gs_host = _load_by_path("_sslap_tpu_torch_gs_host", _REF / "gs_host.py")
+from sslap_tpu_torch import gs_host  # noqa: F401  (the numpy fallback)
+from sslap_tpu_torch.native import build as _build
 
 _lib = _build.load_native()
 

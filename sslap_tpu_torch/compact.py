@@ -1,27 +1,26 @@
 """Tiered active-row-compacted auction solve (the device half of the
 square hybrid).  Counterpart of ``sslap_tpu/compact.py``.
 
-The active (unassigned, biddable) row ids live in a compacted buffer of
-static tier capacity C, and a round costs O(C):
+An eps phase is one op, ``ops.ladder_phase``: a full-width round that
+doubles as the eps-CS violator scan, the wide loop, then the tier ladder,
+whose rounds run over the compacted active set (the unassigned, biddable
+rows; it never grows within a phase, so tiers only step down):
 
-  bid      K1 (ops.bid_topk): top-2 over K per active row, bid
-  resolve  K2 (ops.commit): per column the highest bid, lowest row wins
-  commit   K2: price raise, owner install, eviction (in place)
-  relist   new actives = losers + evicted, sorted so the live ids form an
-           ascending prefix (torch sort; the active set never grows
-           within a phase, so tiers only step down)
+  bid      K1's arithmetic: top-2 over K per active row, bid
+  resolve  K2's: per column the highest bid, lowest row wins
+  commit   K2's: price raise, owner install, eviction (in place)
+  relist   new actives = losers + evicted
 
-Each eps phase opens with a full-width round that doubles as the eps-CS
-violator scan (K1's ``phase_start``).  The per-row data is a plain layout,
-``cols [n, K]`` int32 / ``vals_m [n, K]`` (padding = neg sentinel) /
-``nvalid [n]``: the reference's 128-lane line packing (RowPack) and its
-all-pairs narrow-tier resolve are TPU workarounds with no job here.
-
-Loop control runs on the host: each round reads K2's three counts
-(won, evicted, stayed) back, one small device->host copy per round, so
-the round partition is exactly the reference's.  The reference ran the
-whole solve as one device program; capturing the ladder in a CUDA graph
-or a device-side loop is later work.
+On a CUDA device the whole phase is one persistent kernel launch
+(``ops/csrc/ladder.cu``) with the loop control on the device, and one
+small read back per phase (rounds, active count, tier histogram).  On the
+CPU it is the plain host loop (``ops.ladder.ladder_phase_plain``: one
+count read back per round, a torch sort for the relist).  Either way the
+round partition is exactly the reference's.  The per-row data is a plain
+layout, ``cols [n, K]`` int32 / ``vals_m [n, K]`` (padding = neg
+sentinel) / ``nvalid [n]``: the reference's 128-lane line packing
+(RowPack) and its all-pairs narrow-tier resolve are TPU workarounds with
+no job here.
 
 Determinism: rows pick the lowest column among maxima, columns the lowest
 row among max bids; trajectories do not depend on the ladder (capacity
@@ -37,7 +36,8 @@ import numpy as np
 import torch
 
 from sslap_tpu_torch import auction as _auction
-from sslap_tpu_torch.ops import bid_topk, commit
+from sslap_tpu_torch.ops.ladder import compact_round  # noqa: F401 (API)
+from sslap_tpu_torch.ops.ladder import ladder_phase, make_scratch
 
 
 @dataclasses.dataclass
@@ -88,57 +88,6 @@ def default_tiers(n: int, *, fine: bool = False,
     return tuple(tiers)
 
 
-def compact_round(cols, vals_m, nvalid, prices, owner, sigma, ids, eps, bigp,
-                  *, phase_start: bool = False, keys=None):
-    """One auction round over the compacted active set ``ids`` (pad = n).
-
-    ``prices``, ``owner`` and ``sigma`` are updated IN PLACE.  With
-    ``phase_start``, assigned rows in ``ids`` that violate eps-CS at
-    ``eps`` are unassigned and bid in this round; otherwise every live id
-    is an unassigned row by invariant.  ``keys``: K2's [m] scratch.
-
-    Returns (new_ids [C] ascending, pad = n; counts [3] int32 on the
-    device: won, evicted, stayed)."""
-    tgt, bid = bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner,
-                        eps, bigp, phase_start=phase_start)
-    stay, evicted, counts = commit(ids, tgt, bid, prices, owner, sigma,
-                                   keys)
-    new_ids = torch.sort(torch.cat([stay, evicted])).values[:ids.shape[0]]
-    return new_ids, counts
-
-
-def _round(cols, vals_m, nvalid, prices, owner, sigma, ids, eps, bigp,
-           keys, phase_start=False):
-    new_ids, counts = compact_round(cols, vals_m, nvalid, prices, owner,
-                                    sigma, ids, eps, bigp,
-                                    phase_start=phase_start, keys=keys)
-    won, evicted, stayed = counts.tolist()     # the round's one sync
-    return new_ids, won, evicted, stayed
-
-
-def tier_ladder(cols, vals_m, nvalid, prices, owner, sigma, ids, active,
-                rounds, eps, *, bigp, tiers, threshold=0, max_iter,
-                tier_rounds, keys=None):
-    """Descend the tier ladder at fixed eps: rounds at capacity C while
-    ``active`` exceeds max(next tier, threshold) and the round budget
-    lasts.  ``ids`` is an ascending compacted buffer of capacity tiers[0].
-    ``tier_rounds`` is updated in place.  Returns (ids, active, rounds)."""
-    for ti, C in enumerate(tiers):
-        floor_static = tiers[ti + 1] if ti + 1 < len(tiers) else 0
-        if C != tiers[0]:
-            # live ids are the ascending prefix; the previous tier's exit
-            # condition left active <= C
-            ids = ids[:C]
-        before = rounds
-        while active > max(floor_static, threshold) and rounds < max_iter:
-            ids, won, evicted, _ = _round(cols, vals_m, nvalid, prices,
-                                          owner, sigma, ids, eps, bigp, keys)
-            active = active - won + evicted
-            rounds += 1
-        tier_rounds[ti + 1] += rounds - before
-    return ids, active, rounds
-
-
 def solve_tiered(cols, vals_m, nvalid, p0, eps0, eps_min, theta, max_iter,
                  *, bigp, tiers: Optional[Tuple[int, ...]] = None, trunc=0,
                  init_state: Optional[TieredState] = None,
@@ -172,37 +121,15 @@ def solve_tiered(cols, vals_m, nvalid, p0, eps0, eps_min, theta, max_iter,
     eps0 = np.maximum(dt(eps0), eps_min)
     theta = dt(theta)
     max_iter = int(max_iter)
-    all_rows = torch.arange(n, dtype=torch.int32, device=device)
-    keys = (torch.zeros(m, dtype=torch.int64, device=device)
-            if device.type == "cuda" else None)
+    scratch = (make_scratch(n, m, vals_m.dtype, tiers, device)
+               if device.type == "cuda" else None)
 
     def run_phase(st: TieredState, first: bool) -> None:
-        sigma = st.sigma
-        if first:
-            ids = torch.where(nvalid > 0, all_rows, n)
-        else:
-            ids = torch.where(((sigma < 0) & (nvalid > 0)) | (sigma >= 0),
-                              all_rows, n)
-        ids, _, evicted, stayed = _round(
-            cols, vals_m, nvalid, st.prices, st.owner, sigma,
-            ids.to(torch.int32), st.eps, bigp, keys, phase_start=not first)
-        st.rounds += 1
-        st.tier_rounds[0] += 1
-        active = stayed + evicted
-        if wide:
-            wide_floor = (2 * n) // 5
-            before = st.rounds
-            while active > wide_floor and st.rounds < max_iter:
-                ids, won, evicted, _ = _round(
-                    cols, vals_m, nvalid, st.prices, st.owner, sigma, ids,
-                    st.eps, bigp, keys)
-                active = active - won + evicted
-                st.rounds += 1
-            st.tier_rounds[0] += st.rounds - before
-        _, _, st.rounds = tier_ladder(
-            cols, vals_m, nvalid, st.prices, st.owner, sigma, ids, active,
-            st.rounds, st.eps, bigp=bigp, tiers=tiers, threshold=int(trunc),
-            max_iter=max_iter, tier_rounds=st.tier_rounds, keys=keys)
+        st.rounds, _, hist = ladder_phase(
+            cols, vals_m, nvalid, st.prices, st.owner, st.sigma, st.eps,
+            bigp, first=first, wide=wide, tiers=tiers, threshold=int(trunc),
+            max_iter=max_iter, rounds=st.rounds, scratch=scratch)
+        st.tier_rounds = [a + b for a, b in zip(st.tier_rounds, hist)]
         st.phases += 1
 
     if init_state is None:

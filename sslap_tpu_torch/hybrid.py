@@ -5,9 +5,10 @@ rectangular per-phase path and mode='cpu'.  Counterpart of
 Square flow (the headline path):
 
   device: every eps phase through the tiered compacted solve
-      (compact.solve_tiered, kernels K1/K2), each phase truncated once
-      <= ``trunc`` rows are active -- correct because only the final phase
-      must complete at eps_min; earlier phases precondition prices;
+      (compact.solve_tiered: on CUDA one ladder-kernel launch per phase),
+      each phase truncated once <= ``trunc`` rows are active -- correct
+      because only the final phase must complete at eps_min; earlier
+      phases precondition prices;
   one device->host copy of prices and sigma (owner is derived);
   host: ONE native C++ Gauss-Seidel pass at eps_min (the forward-reverse
       engine ``auction_gs_fr`` by default) finishes the serial eviction

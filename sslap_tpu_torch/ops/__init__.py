@@ -5,6 +5,12 @@ bid.py       -- K1, ``bid_topk``: bid stage (+ phase-start violator scan)
                 sslap_tpu/ops/bid.py::_bid_kernel
 commit.py    -- K2, ``commit``: resolve + commit of a compacted round;
                 replaces sslap_tpu/ops/commit.py::_commit_kernel
+ladder.py    -- ``ladder_phase``: one eps phase of the square tiered solve
+                (phase start, wide loop, tier ladder) as one persistent
+                kernel whose rounds are K1's bid + K2's resolve and
+                commit with the relist and the loop control on the
+                device; redesigns K1 and K2 for that path (the standalone
+                launches serve auction.jacobi_round)
 gs_kernel.py -- K3, ``gs_auction_device``: the serial Gauss-Seidel auction
                 on the device (with the reference's ``prefetch`` and
                 ``_scan`` surface); replaces
@@ -22,6 +28,8 @@ never falls back.  ``<wrapper>.launches`` counts kernel launches.
 from sslap_tpu_torch.ops.bid import bid_topk, bid_topk_plain
 from sslap_tpu_torch.ops.commit import commit, commit_plain
 from sslap_tpu_torch.ops.gs_kernel import gs_auction_device, gs_auction_plain
+from sslap_tpu_torch.ops.ladder import ladder_phase, ladder_phase_plain
 
 __all__ = ["bid_topk", "bid_topk_plain", "commit", "commit_plain",
-           "gs_auction_device", "gs_auction_plain"]
+           "gs_auction_device", "gs_auction_plain", "ladder_phase",
+           "ladder_phase_plain"]

@@ -61,6 +61,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         # ids, tgt, bid, C, n, m, keys, prices, owner, sigma, stay,
         # evicted, counts, stream
         fn.argtypes = [p, p, p, i64, i32, i32, p, p, p, p, p, p, p, p]
+        fn = getattr(lib, f"sslap_ladder_{suffix}")
+        fn.restype = ctypes.c_int
+        # cols, vals_m, nvalid, prices, owner, sigma, keys, ids0, ids1,
+        # tgt, bid, ctrl, tiers, ntiers, n, m, K, eps, bigp, neg,
+        # half_neg, first, wide, threshold, rounds, max_iter, out, stream
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i32, i32, i32,
+                       i32, scalar, scalar, scalar, scalar, ctypes.c_int,
+                       ctypes.c_int, i32, i64, i64, p, p]
+    lib.sslap_ladder_blocks.restype = ctypes.c_int
+    lib.sslap_ladder_blocks.argtypes = []
+    lib.sslap_ladder_ctrl_bytes.restype = ctypes.c_int
+    lib.sslap_ladder_ctrl_bytes.argtypes = []
     lib.sslap_gs_f32.restype = ctypes.c_int
     # cols, vals, K, queue, cap, qcount, prices, owner, eps, bigp, neg,
     # half, real_min, max_bids, prefetch, scan, stats, stream

@@ -5,18 +5,12 @@
 // bid stage (compact.py:305-317) plus, with phase_start, the eps-CS
 // violator scan (compact.py:319-334).
 //
-// Per live id (ids[i] < n), one thread:
-//   w_k   = vals_m[id, k] - prices[cols[id, k]]        (one subtract)
-//   v1    = max_k w_k, slot = first k reaching it      (lowest column)
-//   v2    = max(neg, w_k for k != slot), or v1 - bigp when nvalid < 2
-//   a*    = vals_m[id, slot] + 0                        (the reference's
-//           one-hot sum: turns -0.0 into +0.0)
-//   bid   = (a* - v2) + eps,  tgt = cols[id, slot] for bidders, else m.
-// phase_start: cur = 0 + w at the row's current column (real slots only),
-//   viol = sigma >= 0 && cur < v1 - eps; a violator clears owner[sigma]
-//   and sigma[id] (race-free: an assignment is a matching, and each thread
-//   writes only its own row and its own column) and bids in this round.
-// Dead slots (id >= n) emit tgt = m, bid = 0.
+// Per live id (ids[i] < n), one thread runs round.cuh's bid_row (top-2
+// of vals_m - prices[cols], the bid, and with phase_start the eps-CS
+// violator scan): tgt = the row's best column for bidders, else m.  Dead
+// slots (id >= n) emit tgt = m, bid = 0.  The eps-phase ladder (ladder.cu)
+// runs the same bid_row in its stage A; this standalone launch serves the
+// full-width Jacobi round (auction.jacobi_round).
 //
 // Bound on an H100: each live row reads K cols + K values (contiguous, 8K
 // bytes) and gathers K prices at random columns; the price table (4 MB at
@@ -24,7 +18,7 @@
 // L2 gather latency and, on narrow ladder tiers, by launch latency.  This
 // first version keeps one thread per row: simple, no shared memory, and
 // enough independent rows per launch to fill the card at wide tiers.
-#include "common.cuh"
+#include "round.cuh"
 
 namespace {
 
@@ -47,41 +41,11 @@ __global__ void bid_kernel(const int32_t* __restrict__ ids, int64_t C,
     bid[i] = T(0);
     return;
   }
-  const int32_t* crow = cols + static_cast<int64_t>(id) * K;
-  const T* vrow = vals_m + static_cast<int64_t>(id) * K;
-  const int32_t nv = nvalid[id];
-  const int32_t sig = phase_start ? sigma[id] : -1;
-
-  int32_t c = crow[0];
-  T w = vrow[0] - prices[c];
-  T v1 = w, v2 = neg, cur = T(0);
-  int32_t slot = 0;
-  if (c == sig && w > half_neg) cur = cur + w;
-  for (int32_t k = 1; k < K; ++k) {
-    c = crow[k];
-    w = vrow[k] - prices[c];
-    if (w > v1) {
-      v2 = v1 > v2 ? v1 : v2;
-      v1 = w;
-      slot = k;
-    } else {
-      v2 = w > v2 ? w : v2;
-    }
-    if (c == sig && w > half_neg) cur = cur + w;
-  }
-  if (nv < 2) v2 = v1 - bigp;
-  const T a_star = vrow[slot] + T(0);
-  bool bidding = nv > 0;
-  if (phase_start) {
-    const bool viol = sig >= 0 && cur < v1 - eps;
-    if (viol) {
-      owner[sig] = -1;
-      sigma[id] = -1;
-    }
-    bidding = bidding && (sig < 0 || viol);
-  }
-  tgt[i] = bidding ? crow[slot] : m;
-  bid[i] = (a_star - v2) + eps;
+  // prices are not written during this launch: the read-only path is safe
+  tgt[i] = sslap::bid_row<T>(
+      id, cols, vals_m, nvalid[id], phase_start ? sigma[id] : -1,
+      [=](int32_t c) { return __ldg(prices + c); }, m, K, eps, bigp, neg, half_neg,
+      phase_start != 0, sigma, owner, &bid[i]);
 }
 
 template <typename T>

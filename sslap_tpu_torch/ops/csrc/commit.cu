@@ -8,48 +8,28 @@
 //
 // The TPU kernel walks the bids in order on one core.  Blocks here run in
 // no order, so the tie-break is carried by the key instead of the order:
-//   key = (order-preserving uint32 of the bid) << 32 | (0xFFFFFFFF - row)
-// One 64-bit atomicMax per bidder on keys[tgt] (pass 1) then leaves, per
-// column, the highest bid with the LOWEST row among equal bids.  Float
-// bids map by flipping all bits of negatives and setting the sign bit of
-// non-negatives, after -0.0 is canonicalised to +0.0 (the reference's
-// b == best treats them as equal); int32 bids flip the sign bit.
+// round.cuh's bid_key, (order-preserving uint32 of the bid) << 32 |
+// (0xFFFFFFFF - row).  One 64-bit atomicMax per bidder on keys[tgt] (pass
+// 1) then leaves, per column, the highest bid with the LOWEST row among
+// equal bids.
 //
-// Pass 2: each bidder whose key survived is its column's unique winner.
-// It reads the previous owner, writes price = its own bid, owner, sigma,
-// clears the evictee's sigma (an evictee is assigned, so never a bidder of
-// this round: the writes are disjoint), and resets keys[tgt] to 0.  That
-// reset is the O(C) pass: every column that received a bid has exactly
-// one winner, so the [m] key table is all zero again after every round
-// with no [m] memset.  A loser that reads the cleared key still compares
-// unequal, since every real key is > 0.  Outputs: stay (losers, else n),
-// evicted (previous owners, else n), counts = (won, evicted, stayed),
-// block-reduced in shared memory before one global atomic per block.
+// Pass 2: each bidder runs round.cuh's commit_bid: the one whose key
+// survived is its column's unique winner and commits (price, owner,
+// sigma, the evictee's sigma) and resets keys[tgt] to 0, so the [m] key
+// table is all zero again after every round with no [m] memset.  The
+// eps-phase ladder (ladder.cu) runs the same two steps in its stages A and
+// B; this standalone pair serves auction.jacobi_round.  Outputs: stay
+// (losers, else n), evicted (previous owners, else n), counts = (won,
+// evicted, stayed), block-reduced in shared memory before one global
+// atomic per block.
 //
 // Bound on an H100: C random 8-byte atomics and a handful of random 4-byte
 // accesses per bidder into [m] tables that stay resident in L2 (keys 8 MB,
 // prices/owner 4 MB each at m = 1M); on narrow ladder tiers the two
 // launches' latency dominates.
-#include "common.cuh"
+#include "round.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t order_bits(float b) {
-  if (b == 0.0f) b = 0.0f;  // -0.0 ties +0.0
-  const uint32_t u = __float_as_uint(b);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ uint32_t order_bits(int32_t b) {
-  return static_cast<uint32_t>(b) ^ 0x80000000u;
-}
-
-template <typename T>
-__device__ __forceinline__ unsigned long long bid_key(T b, int32_t row) {
-  return (static_cast<unsigned long long>(order_bits(b)) << 32) |
-         static_cast<unsigned long long>(0xFFFFFFFFu -
-                                         static_cast<uint32_t>(row));
-}
 
 template <typename T>
 __global__ void resolve_kernel(const int32_t* __restrict__ ids,
@@ -67,7 +47,7 @@ __global__ void resolve_kernel(const int32_t* __restrict__ ids,
   if (i >= C) return;
   const int32_t j = tgt[i];
   if (j >= m) return;
-  atomicMax(&keys[j], bid_key(bid[i], ids[i]));
+  atomicMax(&keys[j], sslap::bid_key(bid[i], ids[i]));
 }
 
 template <typename T>
@@ -89,22 +69,17 @@ __global__ void commit_kernel(const int32_t* __restrict__ ids,
     const int32_t j = tgt[i];
     int32_t s = n, e = n;
     if (j < m) {
-      const T b = bid[i];
-      const volatile unsigned long long* kj = keys + j;
-      if (*kj == bid_key(b, id)) {
-        keys[j] = 0ull;
-        const int32_t prev = owner[j];
-        prices[j] = b;
-        owner[j] = id;
-        sigma[id] = j;
+      bool won;
+      const int32_t r = sslap::commit_bid(id, j, bid[i], keys, prices, owner,
+                                          sigma, &won);
+      if (won) {
         atomicAdd(&block_counts[0], 1);
-        if (prev >= 0) {
-          sigma[prev] = -1;
-          e = prev;
+        if (r >= 0) {
+          e = r;
           atomicAdd(&block_counts[1], 1);
         }
       } else {
-        s = id;
+        s = r;
         atomicAdd(&block_counts[2], 1);
       }
     }

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch twin
 (K3 also against the native Gauss-Seidel engine, with and without its
-prefetch), the GS micro-probe kernels (P1-P17) against their plain
+prefetch; the eps-phase ladder through the tiered solve against the same
+solve on the CPU), the GS micro-probe kernels (P1-P17) against their plain
 versions, and the hybrid (square and rectangular) and device-mode solves
 on CUDA against the same solves on the CPU.
 
@@ -20,10 +21,12 @@ import torch
 
 import sslap_tpu_torch as P
 from sslap_tpu_torch import _native
+from sslap_tpu_torch import auction as PA
+from sslap_tpu_torch import compact as PC
 from sslap_tpu_torch import hybrid as PH
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import bid_topk, bid_topk_plain, commit, \
-    commit_plain, gs_auction_device, gs_auction_plain
+    commit_plain, gs_auction_device, gs_auction_plain, ladder_phase
 from sslap_tpu_torch.ops import probe_gs as PG
 
 pytestmark = pytest.mark.cuda
@@ -288,12 +291,16 @@ def test_device_mode_on_cuda_matches_cpu(dev, shape, kw):
 
 @pytest.mark.parametrize("kw", [dict(), dict(wide_rounds=True, theta=10.0)])
 def test_hybrid_on_cuda_matches_cpu(dev, kw):
+    """The device pass makes one ladder launch per phase and no standalone
+    K1/K2 launch."""
     n = 5000
     loc, val = _instance(n)
-    bid_topk.launches = commit.launches = 0
+    bid_topk.launches = commit.launches = ladder_phase.launches = 0
     g = P.AuctionSolver(loc=loc, val=val, shape=(n, n), mode="hybrid",
                         device="cuda", **kw).solve()
-    assert bid_topk.launches == commit.launches == g["meta"]["its"] > 0
+    assert bid_topk.launches == commit.launches == 0
+    assert ladder_phase.launches == g["meta"]["phases"] > 0
+    assert g["meta"]["its"] > g["meta"]["phases"]
     c = P.AuctionSolver(loc=loc, val=val, shape=(n, n), mode="hybrid",
                         device="cpu", **kw).solve()
     np.testing.assert_array_equal(g["sol"], c["sol"])
@@ -302,3 +309,122 @@ def test_hybrid_on_cuda_matches_cpu(dev, kw):
     for k in ("its", "host_bids", "phases", "tier_rounds", "obj"):
         assert g["meta"][k] == c["meta"][k], k
     assert g["meta"]["soln_found"]
+
+
+def _tiered_case(n, integer, seed=30, k=8, empty_every=0):
+    """A square instance and its eps schedule, as the tiered solve takes
+    them; with ``empty_every``, every such row loses all its entries
+    (nvalid = 0)."""
+    rng = np.random.default_rng(seed)
+    rr = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
+    cc = np.concatenate([rng.integers(0, n, n * k), rng.permutation(n)])
+    _, idx = np.unique(rr * n + cc, return_index=True)
+    rr, cc = rr[idx], cc[idx]
+    cost = rng.integers(1, 1000, rr.shape[0])
+    val = cost if integer else (cost + rng.random(rr.shape[0])).astype(
+        np.float32)
+    keep = (rr % empty_every != 3) if empty_every else np.ones_like(rr, bool)
+    prob = P.from_coo(np.stack([rr, cc], 1)[keep], val[keep], shape=(n, n))
+    vmax_abs = float(np.abs(prob.vals[prob.valid]).max())
+    tr = PA.make_transform("min", n, prob.vals.dtype, vmax_abs,
+                           int_exact=prob.int_exact)
+    e0, e_min, theta = PA.default_eps_schedule(
+        prob.vals.dtype, vmax_abs, n, tr.scale, theta=5.0,
+        int_exact=prob.int_exact)
+    assert prob.vals.dtype == (np.int32 if integer else np.float32)
+    return dict(prob=prob, vals_t=tr.apply(prob.vals), e0=e0, e_min=e_min,
+                theta=theta, max_iter=PA.default_max_iter(n))
+
+
+def _tiered(c, device, max_iter=None, **kw):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    prob = c["prob"]
+    return PC.solve_ell_tiered(
+        t(prob.cols), t(c["vals_t"]), t(prob.valid), t(prob.nvalid),
+        t(np.zeros(prob.n, prob.vals.dtype)), c["e0"], c["e_min"],
+        c["theta"], c["max_iter"] if max_iter is None else max_iter, **kw)
+
+
+def _assert_tiered_equal(got, want):
+    (gr, gs), (wr, ws) = got, want
+    np.testing.assert_array_equal(gr.sigma.cpu().numpy(), wr.sigma.numpy())
+    np.testing.assert_array_equal(_bits(gr.prices), _bits(wr.prices))
+    np.testing.assert_array_equal(gs.owner.cpu().numpy(), ws.owner.numpy())
+    assert (gr.rounds, gr.phases, gr.unassigned) == \
+        (wr.rounds, wr.phases, wr.unassigned)
+    assert gs.tier_rounds == ws.tier_rounds
+
+
+def _ladder_on_both(c, **kw):
+    """The tiered solve on the card (the ladder kernel, counted) and on
+    the CPU (its plain version); asserts one launch per phase."""
+    ladder_phase.launches = 0
+    for k in ladder_phase.stats:
+        ladder_phase.stats[k] = 0
+    got = _tiered(c, "cuda", **kw)
+    torch.cuda.synchronize()
+    launches = ladder_phase.launches
+    want = _tiered(c, "cpu", **kw)
+    _assert_tiered_equal(got, want)
+    init = kw.get("init_state")
+    assert launches == got[0].phases - (init.phases if init else 0)
+    return got, dict(ladder_phase.stats)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("trunc", [0, 16])
+@pytest.mark.parametrize("integer", [True, False])
+def test_ladder_kernel_matches_plain(dev, integer, trunc, wide):
+    """n = 3000 crosses the one-block tail (1024 rows) in every phase; the
+    fine ladder with its floor at trunc."""
+    n = 3000
+    c = _tiered_case(n, integer)
+    (res, st), stats = _ladder_on_both(
+        c, trunc=trunc, wide=wide,
+        tiers=PC.default_tiers(n, fine=True, floor=trunc))
+    assert stats["grid_rounds"] > 0 and stats["tail_rounds"] > 0
+    if wide:
+        assert st.tier_rounds[0] > res.phases
+    if trunc == 0:
+        assert res.unassigned == 0
+    else:
+        assert 0 < res.unassigned <= trunc
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_ladder_kernel_resume_and_round_cap(dev, integer):
+    """A resume from init_state (a CUDA-made state and its CPU copy), and
+    a max_iter cap that ends a phase inside the ladder."""
+    n = 3000
+    c = _tiered_case(n, integer, seed=31)
+    (part, st), _ = _ladder_on_both(c, trunc=16, max_phases=2)
+    assert part.phases == 3
+    cpu_st = PC.TieredState(prices=st.prices.cpu(), owner=st.owner.cpu(),
+                            sigma=st.sigma.cpu(), eps=st.eps,
+                            rounds=st.rounds, phases=st.phases,
+                            tier_rounds=list(st.tier_rounds))
+    got = _tiered(c, "cuda", trunc=16, init_state=st)
+    want = _tiered(c, "cpu", trunc=16, init_state=cpu_st)
+    _assert_tiered_equal(got, want)
+    full = got[0].rounds
+    cap = part.rounds + (full - part.rounds) // 2 + 1
+    (res, _), _ = _ladder_on_both(c, max_iter=cap)
+    assert res.rounds == cap
+
+
+def test_ladder_kernel_rows_without_entries(dev):
+    n = 3000
+    c = _tiered_case(n, False, seed=32, empty_every=97)
+    assert (c["prob"].nvalid == 0).sum() == 31
+    (res, _), _ = _ladder_on_both(c)
+    assert res.unassigned == 0
+    assert (res.sigma.cpu().numpy()[c["prob"].nvalid == 0] == -1).all()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_ladder_kernel_crosses_the_tail_at_20k(dev, integer):
+    n = 20_000
+    c = _tiered_case(n, integer, seed=33)
+    (res, _), stats = _ladder_on_both(
+        c, trunc=256, tiers=PC.default_tiers(n, fine=True, floor=256))
+    assert stats["grid_rounds"] > res.phases and stats["tail_rounds"] > 0
