@@ -69,11 +69,38 @@ of which raises on failure (so the exit code is non-zero):
                  (P16, P17), stages 1-3, at n = m = 1M, K = 10, against the
                  plain version over 20,000 bids and in closed form over all
                  1M bids
+ 10. batch    -- BASELINE config 3 at full size (benchmarks/run_all.py's
+                 instance: 256 x make_sparse(4096, 4096, 48, seed=100 + b),
+                 float32, pad_to=52): the dense bid kernel DK
+                 (ops.dense_bid) against its plain version on chunk 0 (32
+                 instances, C = all 131,072 rows and C = 256 + pads) and
+                 K1's batched entry (ops.bid_topk_batched) on the flattened
+                 ELL of 32 instances (mode="device"'s pass) and of all 256,
+                 exact, timed with CUDA events beside
+                 their byte bounds; auction_solve_batched with
+                 mode="hybrid" (cold; a second call with the default
+                 mode 'auto', which must route there; the batch as one
+                 chunk), "cpu", and "device" on the first 32 instances,
+                 each with inst/s, device_time / host_gs_time, rounds,
+                 launches (DK and K2; K1 batched and K2) and the max over
+                 instances of |obj - obj_cpu| against n * final_eps (every
+                 instance must be found and within it); a torch.profiler
+                 window over chunk 0's device pass (DK's share of the
+                 device time, the idle share); CUDA == CPU bit for bit at
+                 B = 4, n = 256 (dense hybrid and batched Jacobi); and
+                 AuctionSolver(mode="hybrid") on a dense 4096 x 4096
+                 matrix, which takes engine="dense": float32 cold and
+                 cached within n * final_eps of scipy's optimum, int32
+                 (costs < 1000, ties in every row) reported as it ends
+                 (its GS tail budget runs out, as the reference's does on
+                 the CPU: dense_tail_budget.py)
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
 rectangular hybrid of phase 7, their path since the square hybrid runs the
-ladder; K3: the two tail runs; P1-P17: the probe suite), its time and its
+ladder, with batched_launches beside from phase 10: K1's batched entry in
+mode="device", K2 in both batched modes; DK: the cold config-3 hybrid
+solve; K3: the two tail runs; P1-P17: the probe suite), its time and its
 plain version's time (K1, K2: C = 1M, float32; the ladder: the pass of
 phase 3; K3: the first 20,000 bids of the tail, with ms_noprefetch beside;
 P1-P17: the reference shapes, P16/P17 at stage 3, with ns/iteration or
@@ -82,7 +109,11 @@ bound_bytes: each input read once and each output written once on that
 run's data, over 3.35 TB/s, or its operations over 67 TFLOP/s) and the
 time of one PyTorch call computing the same function where there is one
 (library_ms: scatter_reduce_ amax for K2's resolve, index_select for the
-row copies of P1-P3, P6 and P9; else null).  The last line is
+row copies of P1-P3, P6 and P9; else null).  DK's entry is at C = 131,072
+(the first round of a chunk), with its C = 256 numbers beside; K1's
+carries its batched entry's numbers as batched_* (a chunk of 32 instances,
+131,072 rows, as mode="device" runs it; all 256 instances as
+batched_all_*).  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -96,13 +127,17 @@ import time
 import numpy as np
 import torch
 
-from sslap_tpu_torch import AuctionSolver, _native
+from sslap_tpu_torch import AuctionSolver, ELLProblem, _native, from_coo
 from sslap_tpu_torch import auction as A
+from sslap_tpu_torch import batch as BT
 from sslap_tpu_torch import compact as C
+from sslap_tpu_torch import dense_batch as DB
 from sslap_tpu_torch import hybrid as H
 from sslap_tpu_torch.auction import neg_sentinel_np
-from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_plain, commit, \
-    commit_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
+from sslap_tpu_torch.batch import auction_solve_batched, stack_problems
+from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched, \
+    bid_topk_batched_plain, bid_topk_plain, commit, commit_plain, dense_bid, \
+    dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
     ladder_phase_plain
 from sslap_tpu_torch.ops import ladder as L
 from sslap_tpu_torch.ops import probe_gs as PG
@@ -126,6 +161,11 @@ KERNELS = {
                "source": "sslap_tpu_torch/ops/csrc/ladder.cu",
                "replaces": "sslap_tpu/ops/bid.py:59 + "
                            "sslap_tpu/ops/commit.py:26"},
+    # no TPU kernel behind DK: it replaces the XLA-compiled dense bid
+    "dense_bid": {"route": "cuda",
+                  "source": "sslap_tpu_torch/ops/csrc/dense_bid.cu",
+                  "replaces": "sslap_tpu/dense_batch.py:56 (XLA, no TPU "
+                              "kernel)"},
 }
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device memory rate and float32 rate outside the tensor cores.
@@ -158,10 +198,11 @@ def make_instance(n, m, k_extra, seed=0, low=1.0, high=1000.0):
     return rr, cc, vv
 
 
-def make_sparse(n, m, nnz_per_row, seed=0, high=1000):
-    """Copy of benchmarks/run_all.py:make_sparse with integer=True
-    (benchmarks/ imports jax): nnz_per_row - 1 random columns per row plus
-    a planted matching, deduplicated by the sorted fused key."""
+def make_sparse(n, m, nnz_per_row, seed=0, high=1000, integer=True):
+    """Copy of benchmarks/run_all.py:make_sparse (benchmarks/ imports jax):
+    nnz_per_row - 1 random columns per row plus a planted matching,
+    deduplicated by the sorted fused key; integer costs in [1, high), or
+    float32 in [1, high)."""
     rng = np.random.default_rng(seed)
     rows = np.repeat(np.arange(n, dtype=np.int64), nnz_per_row - 1)
     cols = rng.integers(0, m, rows.shape[0], dtype=np.int64)
@@ -174,7 +215,9 @@ def make_sparse(n, m, nnz_per_row, seed=0, high=1000):
     np.not_equal(key[1:], key[:-1], out=keep[1:])
     key = key[keep]
     loc = np.stack([key // m, key % m], 1)
-    return loc, rng.integers(1, high, loc.shape[0])
+    if integer:
+        return loc, rng.integers(1, high, loc.shape[0])
+    return loc, (rng.random(loc.shape[0]) * (high - 1) + 1).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -1181,6 +1224,355 @@ def phase_probes():
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the batched solves at BASELINE config 3
+# ---------------------------------------------------------------------------
+
+
+B3, N3, NNZ3 = 256, 4096, 48  # config 3: 256 independent 4096 x 4096 LAPs
+CHUNK3 = 32                   # the dense engine's chunk at 2 GiB of A
+
+
+def config3_batch():
+    """BASELINE config 3 as benchmarks/run_all.py:115-129 builds it:
+    make_sparse(4096, 4096, 48, seed=100 + b), float32 costs,
+    from_coo(pad_to=52), stacked."""
+    t0 = time.perf_counter()
+    probs = []
+    for b in range(B3):
+        loc, val = make_sparse(N3, N3, NNZ3, seed=100 + b, integer=False)
+        probs.append(from_coo(loc, val, shape=(N3, N3), pad_to=NNZ3 + 4))
+    batch = stack_problems(probs)
+    log(f"[10 batch] config 3: {B3} x {N3}x{N3}, nnz {batch.nnz} "
+        f"({batch.nnz / B3:.0f}/instance), K {batch.K}; instances + ingest "
+        f"+ stack {time.perf_counter() - t0:.2f} s")
+    return batch
+
+
+def _dense_chunk(batch, dev):
+    """Chunk 0 of the dense engine on the card (its dense block as the
+    engine builds it), with a mid-solve-like state: random prices in the
+    value range, a third of the rows assigned, the schedule's eps."""
+    lo, hi = 0, CHUNK3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    blk = DB._dense_from_ell(t(batch.cols[lo:hi]), -t(batch.vals[lo:hi]),
+                             t(batch.valid[lo:hi]), N3)
+    nvalid = t(batch.nvalid[lo:hi].reshape(-1).astype(np.int32))
+    rng = np.random.default_rng(5)
+    prices = t((rng.random(CHUNK3 * N3) * 500).astype(np.float32))
+    sigma = np.where(rng.random(CHUNK3 * N3) < 0.3,
+                     rng.integers(0, N3, CHUNK3 * N3), -1).astype(np.int32)
+    eps = t(np.full(CHUNK3, np.float32(0.97)))
+    return blk, nvalid, prices, t(sigma), eps, np.float32(1000.0)
+
+
+def _dense_bid_check(batch, dev):
+    """DK against its plain version on chunk 0 (C = all 131,072 rows, then
+    256 sorted rows with pads), exact on targets, bids and row maxima;
+    timed with CUDA events.  Returns the kernels-line numbers."""
+    blk, nvalid, prices, sigma, eps, bigp = _dense_chunk(batch, dev)
+    N = CHUNK3 * N3
+    rng = np.random.default_rng(6)
+    part = np.full(320, N, np.int32)
+    part[:256] = np.sort(rng.choice(N, 256, replace=False))
+    out = {}
+    for ids in (torch.arange(N, dtype=torch.int32, device=dev),
+                torch.from_numpy(part).to(dev)):
+        C = ids.shape[0]
+        args = (ids, blk, nvalid, prices, sigma, eps, bigp)
+        got = dense_bid(*args, with_v1=True)
+        want = dense_bid_plain(*args, with_v1=True)
+        torch.cuda.synchronize()
+        if not all(_same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"dense_bid kernel != plain at C={C}")
+        err = max(_abs_err(a, b) for a, b in zip(got[1:], want[1:]))
+        reps = 20 if C == N else 200
+        ms = _median_ms(lambda: (), lambda: dense_bid(*args), reps)
+        plain_ms = _median_ms(lambda: (), lambda: dense_bid_plain(*args), 3)
+        live = int((ids < N).sum())
+        # each input read once: ids, the live rows of A, the chunk's prices,
+        # nvalid + sigma + eps of the live rows; outputs tgt and bid
+        bound = _bound(4 * C + 4 * live * N3 + 4 * CHUNK3 * N3 + 12 * live
+                       + 8 * C)
+        log(f"[10 batch] dense_bid C={C} ({live} rows of {N3} columns, "
+            f"{int((got[0] < CHUNK3 * N3).sum())} bids): kernel {ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms, {bound}: "
+            f"{bound['bound_ms'] / ms:.1%} of the bound; exact")
+        out[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+    return out
+
+
+def _batched_k1_check(batch, dev):
+    """K1's batched entry against its plain version, exact, on the
+    flattened ELL of a chunk of 32 instances (the pass mode='device' runs:
+    131,072 rows, eps and bigp arrays of 32) and of all 256 instances
+    (1,048,576 rows); every row bids, per-instance eps and bigp.  Timed
+    with CUDA events.  Returns the chunk's numbers, the whole batch's
+    beside them as all_*."""
+    out = {}
+    for B in (CHUNK3, batch.cols.shape[0]):
+        _, n, K = batch.cols.shape
+        valid = batch.valid[:B]
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        base = (np.arange(B, dtype=np.int32) * n)[:, None, None]
+        cols = t((batch.cols[:B] + base).reshape(B * n, K))
+        vals_m = t(np.where(valid, -batch.vals[:B],
+                            neg_sentinel_np(np.float32)).reshape(B * n, K))
+        nvalid = t(batch.nvalid[:B].reshape(-1).astype(np.int32))
+        rng = np.random.default_rng(7)
+        prices = t((rng.random(B * n) * 500).astype(np.float32))
+        sigma = torch.full((B * n,), -1, dtype=torch.int32, device=dev)
+        owner = torch.full((B * n,), -1, dtype=torch.int32, device=dev)
+        eps = t((rng.random(B) + 0.5).astype(np.float32))
+        vmax = np.where(valid, -batch.vals[:B], -np.inf).max(axis=(1, 2))
+        vmin = np.where(valid, -batch.vals[:B], np.inf).min(axis=(1, 2))
+        bigp = t((vmax - vmin + 1).astype(np.float32))
+        ids = torch.arange(B * n, dtype=torch.int32, device=dev)
+        args = (ids, cols, vals_m, nvalid, prices, sigma, owner, eps, bigp,
+                n)
+        got = bid_topk_batched(*args)
+        want = bid_topk_batched_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0])
+                and _same_bits(got[1], want[1])):
+            raise AssertionError(f"bid_topk_batched != its plain version "
+                                 f"({B} instances)")
+        ms = _median_ms(lambda: (), lambda: bid_topk_batched(*args), 20)
+        plain_ms = _median_ms(lambda: (),
+                              lambda: bid_topk_batched_plain(*args), 3)
+        C = B * n
+        ucols = torch.unique(cols[t(valid.reshape(C, K))]).numel()
+        bound = _bound(4 * C + C * (8 * K + 4) + 4 * ucols + 8 * B + 8 * C,
+                       3 * C * K)
+        log(f"[10 batch] bid_topk_batched C={C} (K={K}, {B} instances): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {bound}: "
+            f"{bound['bound_ms'] / ms:.1%} of the bound; exact")
+        res = dict(max_abs_err=_abs_err(got[1], want[1]), ms=ms,
+                   plain_ms=plain_ms, **bound)
+        if not out:
+            out = res
+        else:
+            out.update({f"all_{k}": v for k, v in res.items()
+                        if k != "bound_by"})
+    return out
+
+
+def _solve_line(name, secs, metas, cpu_objs, launches):
+    """Log one batched solve; returns max |obj - obj_cpu| / (n eps_min)."""
+    its = np.array([mt["its"] for mt in metas])
+    found = all(mt["soln_found"] for mt in metas)
+    gaps = [abs(mt["obj"] - c) for mt, c in zip(metas, cpu_objs)]
+    ratio = max(g / (N3 * mt["final_eps"]) for g, mt in zip(gaps, metas))
+    extra = ""
+    if "device_time" in metas[0]:
+        extra = (f"device_time {metas[0]['device_time']:.3f} s, "
+                 f"host_gs_time {metas[0]['host_gs_time']:.3f} s, ")
+    if "host_bids" in metas[0]:
+        extra += (f"host bids mean "
+                  f"{np.mean([mt['host_bids'] for mt in metas]):.0f}, ")
+    log(f"[10 batch] {name}: {secs:.3f} s, {len(metas) / secs:.1f} inst/s; "
+        f"{extra}rounds max {its.max()} mean {its.mean():.1f}; launches "
+        f"{launches}; max |obj - obj_cpu| {max(gaps)!r} = {ratio:.3g} of "
+        f"n * final_eps; all found: {found}")
+    if not found or ratio > 1:
+        raise AssertionError(f"{name}: a solve is not within n * eps_min")
+    return ratio
+
+
+def _profile_chunk(batch, dev):
+    """torch.profiler over one chunk's device pass (dense block built
+    outside the window): DK's share of the device time, the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    blk = DB._dense_from_ell(t(batch.cols[:CHUNK3]),
+                             -t(batch.vals[:CHUNK3]),
+                             t(batch.valid[:CHUNK3]), N3)
+    nv = t(batch.nvalid[:CHUNK3].reshape(-1).astype(np.int32))
+    vv = batch.vals[batch.valid]
+    e0, e_min, theta = A.default_eps_schedule(np.float32,
+                                              float(np.abs(vv).max()), N3, 1)
+    bigp = float(vv.max() - vv.min()) + 1.0
+    run = lambda: DB._solve_dense(blk, nv, e0, e_min, theta,  # noqa: E731
+                                  A.default_max_iter(N3), bigp, 128)
+    run()                                                    # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events)
+    dk = sum(e.self_device_time_total for e in events
+             if "dense_bid_kernel" in e.key)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"[10 batch] profiler, chunk 0's device pass ({CHUNK3} instances, "
+        f"rounds max {out[2].max()}): window {window_us / 1e3:.2f} ms, device "
+        f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / window_us:.3f}; "
+        f"DK {dk / 1e3:.2f} ms = {dk / max(busy, 1):.3f} of the device time;"
+        f" top: " + ", ".join(
+            f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
+            f"x{e.count}" for e in top))
+
+
+def _batch_parity(dev):
+    """CUDA against CPU, bit for bit, at B = 4, n = 256: the dense hybrid
+    (sols, prices, its, phases, host bids) and the batched Jacobi solve
+    (sols, prices, rounds, phases)."""
+    probs = [from_coo(*make_sparse(256, 256, NNZ3, seed=200 + b,
+                                   integer=False), shape=(256, 256),
+                      pad_to=NNZ3 + 4) for b in range(4)]
+    batch = stack_problems(probs)
+    g = DB.solve_batched_dense_hybrid(batch, return_prices=True,
+                                      device=DEVICE)
+    c = DB.solve_batched_dense_hybrid(batch, return_prices=True,
+                                      device="cpu")
+    keys = ("its", "phases", "host_bids", "final_eps", "obj")
+    if not (np.array_equal(g[0], c[0])
+            and np.array_equal(g[2].view(np.int32), c[2].view(np.int32))
+            and all(a[k] == b[k] for a, b in zip(g[1], c[1]) for k in keys)):
+        raise AssertionError("dense hybrid: CUDA != CPU at B=4, n=256")
+    vv = batch.vals[batch.valid]
+    e0, e_min, theta = A.default_eps_schedule(np.float32,
+                                              float(np.abs(vv).max()), 256, 1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa
+    args = (t(batch.cols), t(-batch.vals), t(batch.valid), t(batch.nvalid),
+            t(np.zeros((4, 256), np.float32)))
+    rg, rc = (BT.solve_ell_batched(*[a.to(d) for a in args], e0, e_min,
+                                   theta, A.default_max_iter(256))
+              for d in (dev, torch.device("cpu")))
+    if not (torch.equal(rg.sigma.cpu(), rc.sigma)
+            and _same_bits(rg.prices.cpu(), rc.prices)
+            and np.array_equal(rg.rounds, rc.rounds)
+            and np.array_equal(rg.phases, rc.phases)):
+        raise AssertionError("batched Jacobi: CUDA != CPU at B=4, n=256")
+    log(f"[10 batch] B=4 n=256: CUDA == CPU bit for bit: dense hybrid (its "
+        f"{[mt['its'] for mt in g[1]]}, phases {g[1][0]['phases']}, host "
+        f"bids {[mt['host_bids'] for mt in g[1]]}) and batched Jacobi "
+        f"(rounds {rg.rounds.tolist()})")
+
+
+def _dense_engine():
+    """AuctionSolver on a dense 4096 x 4096 matrix, mode='hybrid':
+    engine='auto' takes the dense engine.  float32 costs in [1, 1000):
+    cold and cached, cached == cold, |obj - scipy| <= n * final_eps.
+    int32 costs in [1, 1000) (ties in every row): reported as it ends; the
+    GS tail budget of 100 n + 10**6 bids runs out (the JAX reference on
+    the CPU ends the same way at n = 2048 and 4096, dense_tail_budget.py),
+    so only an objective it reports is held to scipy's."""
+    from scipy.optimize import linear_sum_assignment
+    rng = np.random.default_rng(8)
+    for kind, C in (("float32", (rng.random((N3, N3)) * 999 + 1)
+                     .astype(np.float32)),
+                    ("int32", rng.integers(1, 1000, (N3, N3)))):
+        t0 = time.perf_counter()
+        solver = AuctionSolver(C, mode="hybrid", device=DEVICE)
+        ingest_s = time.perf_counter() - t0
+        r, c = linear_sum_assignment(C)
+        want = C[r, c].astype(np.float64).sum()
+        sols = []
+        # the int32 case runs once: a solve that spends the budget takes ~10 s
+        for name in ("cold", "cached") if kind == "float32" else ("cold",):
+            t0 = time.perf_counter()
+            res = solver.solve()
+            secs = time.perf_counter() - t0
+            mt = res["meta"]
+            sols.append(res["sol"])
+            gap = abs(mt["obj"] - want) if mt["soln_found"] else None
+            log(f"[10 batch] AuctionSolver(dense {N3}x{N3} {kind}, mode="
+                f"'hybrid') {name}: {secs:.3f} s (ingest {ingest_s:.2f} s); "
+                f"engine {mt.get('engine')}, its {mt['its']}, phases "
+                f"{mt['phases']}, host bids {mt['host_bids']}, device_time "
+                f"{mt['device_time']:.3f} s, host_gs_time "
+                f"{mt['host_gs_time']:.3f} s; soln_found {mt['soln_found']},"
+                f" unassigned {mt['unassigned']}; |obj - scipy| {gap!r} "
+                f"(n * final_eps {N3 * mt['final_eps']!r})")
+            if mt.get("engine") != "dense" or (
+                    gap is not None and gap > N3 * mt["final_eps"]):
+                raise AssertionError(f"dense engine {kind} {name}: {mt}")
+            if kind == "float32" and not mt["soln_found"]:
+                raise AssertionError(f"dense engine float32 {name}: {mt}")
+        if not all(np.array_equal(sols[0], x) for x in sols):
+            raise AssertionError(f"dense engine {kind}: cached != cold")
+
+
+def phase_batch():
+    """Phase 10.  Returns the kernels-line numbers: DK's entry, and K1's
+    batched launches and times."""
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    batch = config3_batch()
+    dk = _dense_bid_check(batch, dev)
+    k1b = _batched_k1_check(batch, dev)
+    dense_bid.launches = commit.launches = 0
+    t0 = time.perf_counter()
+    sols, cold = auction_solve_batched(batch, mode="hybrid", device=DEVICE)
+    cold_s = time.perf_counter() - t0
+    launches = {"dense_bid": dense_bid.launches, "commit": commit.launches}
+    dense_bid.launches = commit.launches = 0
+    t0 = time.perf_counter()
+    # the second call takes the default mode: 'auto' must route to the
+    # dense hybrid on the card
+    sols2, warm = auction_solve_batched(batch, device=DEVICE)
+    if any(mt["mode"] != "dense-hybrid" for mt in warm):
+        raise AssertionError("mode='auto' did not take the dense hybrid")
+    warm_s = time.perf_counter() - t0
+    warm_launches = {"dense_bid": dense_bid.launches,
+                     "commit": commit.launches}
+    if not np.array_equal(sols, sols2):
+        raise AssertionError("second hybrid call differs from the first")
+    # the whole batch as one chunk: the device pass ends before the first
+    # GS tail starts (no overlap), which splits the two
+    dense_bid.launches = commit.launches = 0
+    t0 = time.perf_counter()
+    sols3, one = auction_solve_batched(batch, mode="hybrid", chunk=B3,
+                                       device=DEVICE)
+    one_s = time.perf_counter() - t0
+    one_launches = {"dense_bid": dense_bid.launches,
+                    "commit": commit.launches}
+    torch.cuda.empty_cache()
+    if not np.array_equal(sols, sols3):
+        raise AssertionError("hybrid with one chunk differs")
+    t0 = time.perf_counter()
+    _, cpu = auction_solve_batched(batch, mode="cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_objs = [mt["obj"] for mt in cpu]
+    if not all(mt["soln_found"] for mt in cpu):
+        raise AssertionError("mode='cpu' found no solution")
+    log(f"[10 batch] mode='cpu': {cpu_s:.3f} s, {B3 / cpu_s:.1f} inst/s; "
+        f"host bids mean {np.mean([mt['its'] for mt in cpu]):.0f}")
+    _solve_line("hybrid cold", cold_s, cold, cpu_objs, launches)
+    _solve_line("hybrid second call (auto)", warm_s, warm, cpu_objs,
+                warm_launches)
+    _solve_line(f"hybrid, chunk={B3} (one pass, then the GS tails)", one_s,
+                one, cpu_objs, one_launches)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"hybrid launches {launches}")
+    sub = ELLProblem(cols=batch.cols[:CHUNK3], vals=batch.vals[:CHUNK3],
+                     valid=batch.valid[:CHUNK3],
+                     nvalid=batch.nvalid[:CHUNK3], n=N3, m=N3)
+    bid_topk_batched.launches = commit.launches = 0
+    t0 = time.perf_counter()
+    _, dmetas = auction_solve_batched(sub, mode="device", device=DEVICE)
+    dev_s = time.perf_counter() - t0
+    k1_launches = {"bid_topk_batched": bid_topk_batched.launches,
+                   "commit": commit.launches}
+    _solve_line(f"mode='device' ({CHUNK3} instances)", dev_s, dmetas,
+                cpu_objs[:CHUNK3], k1_launches)
+    rounds = max(mt["its"] for mt in dmetas)
+    if not (k1_launches["bid_topk_batched"] == k1_launches["commit"]
+            == rounds > 0):
+        raise AssertionError(f"device launches {k1_launches}, rounds "
+                             f"{rounds}")
+    _profile_chunk(batch, dev)
+    del batch
+    _batch_parity(dev)
+    _dense_engine()
+    log(f"[10 batch] phase 10 in {time.perf_counter() - t_phase:.1f} s")
+    return dk, k1b, launches, k1_launches
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -1198,13 +1590,22 @@ def main() -> None:
     launches.update(phase_rect())
     phase_jacobi()
     probes = phase_probes()
+    dk, k1b, hy_launches, dev_launches = phase_batch()
+    # the batched paths of K1 (mode='device') and K2 (both batched modes)
+    batched = {
+        "bid_topk": dict(batched_launches=dev_launches["bid_topk_batched"],
+                         **{f"batched_{k}": v for k, v in k1b.items()}),
+        "commit": dict(batched_launches={
+            "hybrid": hy_launches["commit"],
+            "device": dev_launches["commit"]}),
+    }
     kernels = []
     for name in ("bid_topk", "commit"):
         kernels.append(dict(
             name=name, **KERNELS[name], launches=launches[name],
             max_abs_err=errs[name], ms=times[name],
             plain_ms=times[name + "_plain"], **times["bounds"][name],
-            library_ms=times["library"][name]))
+            library_ms=times["library"][name], **batched[name]))
     name = "gs_auction_device"
     kernels.append(dict(
         name=name, **KERNELS[name], launches=launches[name],
@@ -1215,6 +1616,13 @@ def main() -> None:
                          for (scan, pf), v in k3_us.items()}))
     kernels.append(dict(name="ladder", **KERNELS["ladder"],
                         launches=launches["ladder"], **ladder))
+    # DK at C = all rows of a chunk (the first round), and at C = 256
+    big, small = dk[CHUNK3 * N3], dk[min(dk)]
+    kernels.append(dict(name="dense_bid", **KERNELS["dense_bid"],
+                        launches=hy_launches["dense_bid"], **big,
+                        library_ms=None,
+                        **{f"{k}_c256": small[k] for k in
+                           ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

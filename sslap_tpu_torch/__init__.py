@@ -2,11 +2,13 @@
 assignment by the auction algorithm with epsilon-scaling).
 
 Ported so far: the square and rectangular hybrid solves (device rounds
-through the hand-written Hopper kernels in ``ops/``, then the shared native
-C++ host finisher), the pure device mode, the native CPU mode,
-``hopcroft_solve``, ``linear_sum_assignment`` and the device Gauss-Seidel
-op ``gs_auction_device``.  ``sslap_tpu`` (JAX) stays the reference; this
-package imports torch and numpy, never jax.
+through the hand-written Hopper kernels in ``ops/``, then the native C++
+host finisher), the dense engine (``engine='dense'``), the pure device
+mode, the native CPU mode, the batched solves of many independent
+instances (``auction_solve_batched`` over ``stack_problems`` /
+``batch_from_dense``), ``hopcroft_solve``, ``linear_sum_assignment`` and
+the device Gauss-Seidel op ``gs_auction_device``.  ``sslap_tpu`` (JAX)
+stays the reference; this package imports torch and numpy, never jax.
 """
 
 from sslap_tpu_torch.api import (
@@ -17,6 +19,8 @@ from sslap_tpu_torch.api import (
     hopcroft_solve,
     linear_sum_assignment,
 )
+from sslap_tpu_torch.batch import auction_solve_batched, batch_from_dense, \
+    stack_problems
 from sslap_tpu_torch.config import AuctionConfig
 from sslap_tpu_torch.ingest import ELLProblem, from_coo, from_csr, from_dense
 from sslap_tpu_torch.ops import gs_auction_device
@@ -28,10 +32,13 @@ __all__ = [
     "ELLProblem",
     "InfeasibleError",
     "auction_solve",
+    "auction_solve_batched",
+    "batch_from_dense",
     "from_coo",
     "from_csr",
     "from_dense",
     "gs_auction_device",
     "hopcroft_solve",
     "linear_sum_assignment",
+    "stack_problems",
 ]

@@ -3,8 +3,10 @@ scipy-style linear_sum_assignment.  Counterpart of ``sslap_tpu/api.py``
 for the modes the port carries: 'hybrid' (device bulk on ``device`` +
 native host tail; square and rectangular), 'device' (the whole eps-scaled
 Jacobi auction on ``device``), 'cpu' (native Gauss-Seidel) and 'auto' (the
-reference's routing).  The sharded modes and the 'candidates' and 'dense'
-engines raise NotImplementedError (ROADMAP.md).
+reference's routing), and the 'dense' engine of mode 'hybrid' (dense
+device rounds + native GS tail through the batched dense engine, picked by
+engine='auto' for dense-dominated square instances).  The sharded modes
+and the 'candidates' engine raise NotImplementedError (ROADMAP.md).
 
 Returns a dict-like ``AuctionSolution`` with 'sol' (row -> col), 'meta'
 (objective, rounds, phases, final eps, solution-found flag, timing) and
@@ -96,9 +98,9 @@ class AuctionSolver:
     """Construct-once solver over an ingested problem; holds the prices of
     the last solve and the device-resident problem data for re-solves.
 
-    ``device``: where the device rounds of modes 'hybrid' and 'device' run
-    ("cuda" by default; "cpu" runs the kernels' plain twins).  A CUDA
-    failure raises: there is no fallback to the CPU path."""
+    ``device``: where the device rounds of modes 'hybrid' (either engine)
+    and 'device' run ("cuda" by default; "cpu" runs the kernels' plain
+    twins).  A CUDA failure raises: there is no fallback to the CPU path."""
 
     def __init__(self, mat=None, *, loc=None, val=None,
                  shape: Optional[Tuple[int, int]] = None, problem=_UNSET,
@@ -127,8 +129,8 @@ class AuctionSolver:
             raise _not_ported(f"mode={kw['mode']!r}")
         if kw["engine"] not in ENGINES:
             raise ValueError(f"unknown engine {kw['engine']!r}")
-        if kw["engine"] in ("candidates", "dense"):
-            raise _not_ported(f"engine={kw['engine']!r}")
+        if kw["engine"] == "candidates":
+            raise _not_ported("engine='candidates'")
         theta_tail = kw["theta_tail"]
         if theta_tail is not None and not (theta_tail == 0 or theta_tail > 1):
             raise ValueError("theta_tail must be 0 (off) or > 1")
@@ -178,20 +180,55 @@ class AuctionSolver:
             return "hybrid"
         return "cpu"
 
-    def _check_engine(self, mode: str, warm: bool) -> None:
-        """Refuse what the reference's engine='auto' would send to the
-        dense engine (square f32/int32, n <= 16384, >= 1/4 dense, native
-        host runtime), instead of solving it on another path."""
-        prob = self.problem_spec
-        if self.engine == "auto" and mode == "hybrid" and not warm:
-            if (prob.nnz * 4 >= prob.n * prob.m and prob.n == prob.m
-                    and prob.n <= 16384 and not prob.int_exact
-                    and _hybrid.native_available()):
-                raise NotImplementedError(
-                    "engine='auto' picks engine='dense' for this "
-                    "dense-dominated instance, and the dense engine is not "
-                    "ported to sslap_tpu_torch yet (see ROADMAP.md); pass "
-                    "engine='compact'")
+    def _resolve_engine(self, mode: Optional[str] = None,
+                        warm: bool = False) -> str:
+        """The reference's pick: engine='auto' is 'dense' for a cold
+        mode='hybrid' solve of a dense-dominated instance (nnz * 4 >= n *
+        m) that the dense engine accepts, else 'compact'."""
+        if self.engine != "auto":
+            return self.engine
+        if mode == "hybrid" and not warm:
+            from sslap_tpu_torch import dense_batch as _db
+            prob = self.problem_spec
+            if (prob.nnz * 4 >= prob.n * prob.m
+                    and _db.dense_hybrid_available(prob)):
+                return "dense"
+        return "compact"
+
+    def _solve_dense_hybrid(self, prob: ELLProblem, t0, warm_prices
+                            ) -> AuctionSolution:
+        """One instance through the batched dense engine (B = 1): dense
+        [1, n, m] device rounds and one native GS tail.  Its meta already
+        counts empty rows in ``unassigned`` and carries the exact
+        objective."""
+        if warm_prices is not None:
+            raise ValueError(
+                "engine='dense' does not support warm_prices (its phase "
+                "warm starts are internal); use the default engine")
+        from sslap_tpu_torch import dense_batch as _db
+        from sslap_tpu_torch.batch import stack_problems
+        if not _db.dense_hybrid_available(prob):
+            raise ValueError(
+                "engine='dense' needs a square f32/int32 problem with "
+                "n <= 16384 and the native toolchain")
+        # the [1, n, K] stack is built once per solver (one solver, one
+        # problem, as for the rest of the device cache)
+        stacked = self._device_cache.get("dense_stacked")
+        if stacked is None:
+            stacked = stack_problems([prob])
+            self._device_cache["dense_stacked"] = stacked
+        sols, metas, prices = _db.solve_batched_dense_hybrid(
+            stacked, problem=self.problem, eps_start=self.eps_start,
+            eps_min=self.eps_min,
+            theta=(5.0 if self.theta is None else self.theta),
+            max_iter=self.max_iter, return_prices=True,
+            device_cache=self._device_cache, device=self.device)
+        self.prices = prices[0]
+        # meta 'mode' stays the requested mode; the engine is named beside
+        self.meta = dict(metas[0], mode="hybrid", engine="dense",
+                         time=time.perf_counter() - t0)
+        return AuctionSolution(sol=sols[0], meta=self.meta,
+                               prices=self.prices)
 
     def solve(self, warm_prices=None, warm_relax: float = 1.0,
               warm_mode: str = "raw") -> AuctionSolution:
@@ -220,7 +257,13 @@ class AuctionSolver:
         mode = self._resolve_mode()
         if mode == "device":
             return self._solve_device(prob, warm_prices, t0)
-        self._check_engine(mode, warm=warm_prices is not None)
+        if self._resolve_engine(mode, warm=warm_prices is not None) == \
+                "dense":
+            if mode != "hybrid":
+                raise ValueError(
+                    "engine='dense' runs dense device rounds with a native "
+                    "GS tail -- it requires mode='hybrid'")
+            return self._solve_dense_hybrid(prob, t0, warm_prices)
         n_empty = int((prob.nvalid == 0).sum())
         sol, prices, hmeta = _hybrid.solve_hybrid(
             prob, problem=self.problem, eps_start=self.eps_start,
@@ -248,6 +291,11 @@ class AuctionSolver:
         (the tiered phase start IS the warm-started violator scan).
         warm_mode='fr' applies to 'hybrid'/'cpu' only, as in the
         reference."""
+        tiered = prob.n == prob.m and self.keep_assignment
+        if tiered and self._resolve_engine() == "dense":
+            raise ValueError(
+                "engine='dense' runs dense device rounds with a native GS "
+                "tail -- it requires mode='hybrid'")
         dev = torch.device(self.device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device "
@@ -268,7 +316,7 @@ class AuctionSolver:
         cols, vals_t, valid_d, nvalid, p0 = (
             torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in (prob.cols, tr.apply(vals), valid, prob.nvalid, p0))
-        if prob.n == prob.m and self.keep_assignment:
+        if tiered:
             res, _ = _compact.solve_ell_tiered(cols, vals_t, valid_d, nvalid,
                                                p0, e0, e_min, theta,
                                                max_iter)

@@ -373,51 +373,78 @@ def count_unassigned_dummies(owner: torch.Tensor, n_dummy: int):
     return n_dummy - (owner == DUMMY_OWNER).sum()
 
 
-def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int):
+# The dummy step and the violator scan take B instances laid end to end:
+# prices/owner [B * m], sigma [B * n] holding flattened columns b * m + c,
+# cols the same ids.  ``eps`` is a [B] tensor (each instance's own) or one
+# scalar, and then B = 1; ``lanes`` ([B] bool tensor, None = all) limits
+# the update to those instances.
+
+
+def _lane_eps(eps):
+    """(B, eps per lane as [B, 1] or the scalar)."""
+    if torch.is_tensor(eps):
+        return eps.shape[0], eps[:, None]
+    return 1, eps
+
+
+def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int, lanes=None):
     """Place every unassigned dummy (the reference's ``dummy_grab_step``):
-    the u_d cheapest columns (stable sort: ties to the lowest column) go to
-    dummies at t + eps, evicting their real owners.  ``prices``,
-    ``owner`` and ``sigma`` are updated IN PLACE; returns them and u_d."""
-    m = prices.shape[0]
+    per instance the u_d cheapest columns (stable sort: ties to the lowest
+    column) go to its dummies at t + eps, evicting their real owners.
+    ``prices``, ``owner`` and ``sigma`` are updated IN PLACE; returns them
+    and u_d ([B])."""
+    B, e = _lane_eps(eps)
+    m = prices.shape[0] // B
     n = sigma.shape[0]
-    u_d = count_unassigned_dummies(owner, n_dummy)
-    order = torch.sort(prices, stable=True).indices
-    rank = torch.empty(m, dtype=torch.int64, device=prices.device)
-    rank[order] = torch.arange(m, device=prices.device)
-    grab = rank < u_d
-    t = prices[order[u_d.clamp(0, m - 1)]]
-    evict = torch.where(grab & (owner >= 0), owner, n).long()
+    P, O = prices.view(B, m), owner.view(B, m)
+    u_d = n_dummy - (O == DUMMY_OWNER).sum(1)
+    if lanes is not None:
+        u_d = torch.where(lanes, u_d, 0)
+    order = torch.sort(P, dim=1, stable=True).indices
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(m, device=P.device).expand(B, m))
+    grab = rank < u_d[:, None]
+    t = P.gather(1, order.gather(1, u_d.clamp(0, m - 1)[:, None]))
+    evict = torch.where(grab & (O >= 0), O, n).reshape(-1).long()
     sig = torch.cat([sigma, sigma.new_full((1,), -1)])
     sig[evict] = -1
     sigma.copy_(sig[:n])
-    owner.copy_(torch.where(grab, DUMMY_OWNER, owner))
-    prices.copy_(torch.where(grab, t + eps, prices))
+    O.copy_(torch.where(grab, DUMMY_OWNER, O))
+    P.copy_(torch.where(grab, t + e, P))
     return prices, owner, sigma, u_d
 
 
 def unassign_violators(cols, vals_t, valid, prices, owner, sigma, eps,
-                       n_dummy: int):
+                       n_dummy: int, lanes=None):
     """Unassign only the pairs that violate eps-CS at the new ``eps``,
     keeping the rest as the phase's warm start; with dummies, also free
-    dummy-held columns priced above min(prices) + eps.  ``vals_t`` may be
-    masked or not (only valid slots are read).  ``owner`` and ``sigma``
-    are updated IN PLACE and returned."""
-    m = prices.shape[0]
+    dummy-held columns priced above the instance's min(prices) + eps.
+    ``vals_t`` may be masked or not (only valid slots are read).
+    ``owner`` and ``sigma`` are updated IN PLACE and returned."""
+    B, e = _lane_eps(eps)
+    M = prices.shape[0]
+    n = sigma.shape[0] // B
     neg = neg_sentinel(vals_t.dtype)
     w = torch.where(valid, vals_t - prices[cols.long()],
                     torch.full_like(vals_t, neg))
     v1 = w.amax(dim=1)
     cur_hit = (cols == sigma[:, None]) & valid
     cur = torch.where(cur_hit, w, torch.zeros_like(w)).sum(dim=1)
-    viol = (sigma >= 0) & (cur < v1 - eps)
+    e_row = e.repeat_interleave(n) if torch.is_tensor(e) else e
+    viol = (sigma >= 0) & (cur < v1 - e_row)
+    if lanes is not None:
+        viol &= lanes.repeat_interleave(n)
     own = torch.cat([owner, owner.new_full((1,), -1)])
-    own[torch.where(viol, sigma, m).long()] = -1
-    sigma.copy_(torch.where(viol, -1, sigma))
+    own[torch.where(viol, sigma, M).long()] = -1
+    sigma.masked_fill_(viol, -1)
     if n_dummy > 0:
         # a dummy values column j at -p_j: eps-CS needs p_j <= min(p) + eps
-        viol_d = (own[:m] == DUMMY_OWNER) & (prices > prices.min() + eps)
-        own[:m] = torch.where(viol_d, -1, own[:m])
-    owner.copy_(own[:m])
+        P, O = prices.view(B, M // B), own[:M].view(B, M // B)
+        viol_d = (O == DUMMY_OWNER) & (P > P.amin(1, keepdim=True) + e)
+        if lanes is not None:
+            viol_d &= lanes[:, None]
+        O.masked_fill_(viol_d, -1)
+    owner.copy_(own[:M])
     return owner, sigma
 
 
@@ -437,7 +464,8 @@ def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
     only the eps-CS violators are unassigned (``keep_assignment``) or the
     whole assignment is reset.  ``bigp`` None derives it from the value
     range in the solver dtype.  Loop control runs on the host: one
-    unassigned count is read back per round."""
+    unassigned count is read back per round (``lane_phases`` with one
+    lane)."""
     n = cols.shape[0]
     m = p0.shape[0]
     n_dummy = m - (n if n_global is None else n_global)
@@ -445,42 +473,81 @@ def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
     dt = numpy_dtype(dtype).type
     device = p0.device
     bigp = dt(value_bigp(vals_t, valid) if bigp is None else bigp)
-    eps_min = dt(eps_min)
-    eps = np.maximum(dt(eps0), eps_min)
-    theta = dt(theta)
-    max_iter = int(max_iter)
     vals_m = mask_vals(vals_t, valid)
     keys = (torch.zeros(m, dtype=torch.int64, device=device)
             if device.type == "cuda" else None)
     prices = p0.to(dtype, copy=True)
     owner = torch.full((m,), -1, dtype=torch.int32, device=device)
     sigma = torch.full((n,), -1, dtype=torch.int32, device=device)
-    rounds = phases = 0
 
     def left():
         c = count_unassigned(sigma, nvalid)
         if n_dummy > 0:
             c = c + count_unassigned_dummies(owner, n_dummy)
-        return int(c)
+        return np.array([int(c)])
 
-    while True:
-        while rounds < max_iter and left() > 0:
-            jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps,
-                         bigp, keys)
-            if n_dummy > 0:
-                dummy_grab_step(prices, owner, sigma, eps, n_dummy)
-            rounds += 1
-        phases += 1
-        if eps <= eps_min or rounds >= max_iter:
-            break
-        eps = _next_eps(eps, theta, eps_min, theta_tail=theta_tail,
-                        tail_phases=tail_phases)
+    def step(lanes, eps_of, eps):
+        jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps[0],
+                     bigp, keys)
+        if n_dummy > 0:
+            dummy_grab_step(prices, owner, sigma, eps[0], n_dummy)
+
+    def scan(lanes, eps_of, eps):
         if keep_assignment:
             unassign_violators(cols, vals_t, valid, prices, owner, sigma,
-                               eps, n_dummy)
+                               eps[0], n_dummy)
         else:
             sigma.fill_(-1)
             owner.fill_(-1)
-    return SolveResult(sigma=sigma, prices=prices, rounds=rounds,
-                       phases=phases, final_eps=eps,
+
+    rounds, phases, eps = lane_phases(
+        1, device, dt, eps0, eps_min, theta, int(max_iter), left, step,
+        scan, theta_tail=theta_tail, tail_phases=tail_phases)
+    return SolveResult(sigma=sigma, prices=prices, rounds=int(rounds[0]),
+                       phases=int(phases[0]), final_eps=eps[0],
                        unassigned=int(count_unassigned(sigma, nvalid)))
+
+
+def lane_phases(B: int, dev, dt, eps0, eps_min, theta, max_iter: int,
+                active, step, scan, trunc: int = 0, theta_tail=None,
+                tail_phases: int = 2):
+    """The eps-scaled phase loop of B independent instances, with the
+    per-lane semantics of the reference's (vmapped) while loops: a lane's
+    phase runs rounds while its ``active()`` count ([B] numpy) exceeds
+    ``trunc`` and it has spent fewer than ``max_iter`` rounds; then it
+    stops (at eps_min or at the round cap), or its eps descends
+    (``_next_eps``) and its next phase opens with the violator scan, and
+    may make no round.  ``step(lanes, eps_of, eps)`` runs one round of the
+    lanes in a phase and ``scan(lanes, eps_of, eps)`` the scan of the
+    lanes that advance: ``lanes`` is a [B] bool tensor on ``dev``,
+    ``eps_of`` every lane's eps there and ``eps`` its host copy, in the
+    solver dtype ``dt``.  Returns (rounds, phases, eps) per lane."""
+    eps_min, theta = dt(eps_min), dt(theta)
+    eps = np.full(B, np.maximum(dt(eps0), eps_min))
+    eps_of = torch.tensor(eps, device=dev)
+    rounds = np.zeros(B, np.int64)
+    phases = np.zeros(B, np.int64)
+    in_phase = np.ones(B, bool)
+    running = np.zeros(B, bool)
+    while True:
+        now = in_phase & (active() > trunc) & (rounds < max_iter)
+        ending = in_phase & ~now
+        if ending.any():
+            phases[ending] += 1
+            adv = ending & (eps > eps_min) & (rounds < max_iter)
+            in_phase &= ~ending | adv
+            if adv.any():
+                for b in np.flatnonzero(adv):
+                    eps[b] = _next_eps(eps[b], theta, eps_min,
+                                       theta_tail=theta_tail,
+                                       tail_phases=tail_phases)
+                eps_of = torch.tensor(eps, device=dev)
+                scan(torch.from_numpy(adv).to(dev), eps_of, eps)
+            continue
+        if not now.any():
+            return rounds, phases, eps
+        if not np.array_equal(now, running):     # one H2D per change
+            running = now
+            lanes = torch.from_numpy(running).to(dev)
+        step(lanes, eps_of, eps)
+        rounds[running] += 1

@@ -56,6 +56,19 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [p, i64, p, p, p, p, p, p, i32, i32, i32,
                        scalar, scalar, scalar, scalar, ctypes.c_int,
                        p, p, p]
+        fn = getattr(lib, f"sslap_bid_batched_{suffix}")
+        fn.restype = ctypes.c_int
+        # ids, C, cols, vals_m, nvalid, prices, sigma, owner, n, m, K,
+        # eps_of, bigp_of, rows_per, neg, half_neg, phase_start, tgt, bid,
+        # stream
+        fn.argtypes = [p, i64, p, p, p, p, p, p, i32, i32, i32, p, p, i32,
+                       scalar, scalar, ctypes.c_int, p, p, p]
+        fn = getattr(lib, f"sslap_dense_bid_{suffix}")
+        fn.restype = ctypes.c_int
+        # ids, C, A, nvalid, prices, sigma, eps_of, bigp, neg, n, m, rows,
+        # no_bid, vec, tgt, bid, v1_out, stream
+        fn.argtypes = [p, i64, p, p, p, p, p, scalar, scalar, i32, i32, i32,
+                       i32, ctypes.c_int, p, p, p, p]
         fn = getattr(lib, f"sslap_commit_{suffix}")
         fn.restype = ctypes.c_int
         # ids, tgt, bid, C, n, m, keys, prices, owner, sigma, stay,

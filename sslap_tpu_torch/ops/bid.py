@@ -10,6 +10,10 @@ loop and every ladder round.  The kernel is ``csrc/bid.cu`` (what bounds
 it on the card, and what its design does about that, is noted there);
 ``bid_topk_plain`` is the same function as torch ops.
 
+``bid_topk_batched`` is the batched entry of the same kernel (the
+batched Jacobi solve, ``batch.py``): ids, columns and tables are a batch's,
+flattened, and each row reads eps and bigp of its instance.
+
 ``bid_topk`` dispatches by device: a CPU tensor goes to the plain twin, a
 CUDA tensor launches the kernel (or raises), and nothing falls back.
 """
@@ -23,6 +27,10 @@ from sslap_tpu_torch.ops import _build
 
 
 def _scalar(x, dtype: torch.dtype):
+    """A Python scalar in ``dtype``'s kind; a tensor (per-row values of the
+    plain twin) passes through."""
+    if isinstance(x, torch.Tensor):
+        return x
     return float(x) if dtype.is_floating_point else int(x)
 
 
@@ -31,7 +39,8 @@ def bid_topk_plain(ids, cols, vals_m, nvalid, prices, sigma, owner, eps,
     """Plain torch twin of the kernel; same arguments and results.
 
     ids [C] int32 (pad = n); cols [n, K] int32; vals_m [n, K] (padding =
-    neg sentinel); nvalid [n]; prices [m]; sigma [n]; owner [m].  With
+    neg sentinel); nvalid [n]; prices [m]; sigma [n]; owner [m]; eps and
+    bigp scalars, or [C] tensors of per-row values (pad slots ignored).  With
     ``phase_start`` violators are unassigned IN PLACE in ``sigma`` and
     ``owner``.  Returns (tgt [C] int32, m = no bid; bid [C], 0 at pads)."""
     n = sigma.shape[0]
@@ -112,3 +121,67 @@ def bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner, eps, bigp,
 
 
 bid_topk.launches = 0
+
+
+def bid_topk_batched_plain(ids, cols, vals_m, nvalid, prices, sigma, owner,
+                           eps_of, bigp_of, rows_per: int, *,
+                           phase_start: bool = False):
+    """Plain twin of the batched entry: ``bid_topk_plain`` over a batch
+    flattened to N = B * rows_per rows and M = B * m columns (cols hold
+    b * m + c), with eps_of [B] and bigp_of [B] read per row at
+    ids // rows_per (pad ids read instance 0)."""
+    b = torch.where(ids < sigma.shape[0], ids, 0).long() // rows_per
+    return bid_topk_plain(ids, cols, vals_m, nvalid, prices, sigma, owner,
+                          eps_of[b], bigp_of[b], phase_start=phase_start)
+
+
+def bid_topk_batched(ids, cols, vals_m, nvalid, prices, sigma, owner,
+                     eps_of, bigp_of, rows_per: int, *,
+                     phase_start: bool = False):
+    """K1's batched entry: see ``bid_topk_batched_plain``.  CPU tensors run
+    the twin; CUDA tensors launch ``csrc/bid.cu``'s batched entry."""
+    if ids.device.type == "cpu":
+        return bid_topk_batched_plain(ids, cols, vals_m, nvalid, prices,
+                                      sigma, owner, eps_of, bigp_of,
+                                      rows_per, phase_start=phase_start)
+    if ids.device.type != "cuda":
+        raise RuntimeError(f"bid_topk_batched: unsupported device "
+                           f"{ids.device}")
+    dtype = vals_m.dtype
+    if dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"bid_topk_batched: unsupported dtype {dtype}")
+    n, K = cols.shape
+    m = prices.shape[0]
+    C = ids.shape[0]
+    B = eps_of.shape[0]
+    for name, t, dt in (("ids", ids, torch.int32), ("cols", cols, torch.int32),
+                        ("nvalid", nvalid, torch.int32),
+                        ("sigma", sigma, torch.int32),
+                        ("owner", owner, torch.int32),
+                        ("vals_m", vals_m, dtype), ("prices", prices, dtype),
+                        ("eps_of", eps_of, dtype),
+                        ("bigp_of", bigp_of, dtype)):
+        if t.device != ids.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"bid_topk_batched: {name} must be a contiguous "
+                             f"{dt} tensor on {ids.device}")
+    if vals_m.shape != (n, K) or nvalid.shape != (n,) or \
+            sigma.shape != (n,) or owner.shape != (m,) or \
+            bigp_of.shape != (B,) or n != B * rows_per or m % B:
+        raise ValueError("bid_topk_batched: inconsistent shapes")
+    lib = _build.load()
+    tgt = torch.empty(C, dtype=torch.int32, device=ids.device)
+    bid = torch.empty(C, dtype=dtype, device=ids.device)
+    fn = (lib.sslap_bid_batched_f32 if dtype == torch.float32
+          else lib.sslap_bid_batched_i32)
+    err = fn(ids.data_ptr(), C, cols.data_ptr(), vals_m.data_ptr(),
+             nvalid.data_ptr(), prices.data_ptr(), sigma.data_ptr(),
+             owner.data_ptr(), n, m, K, eps_of.data_ptr(), bigp_of.data_ptr(),
+             rows_per, neg_sentinel(dtype), half_neg(dtype), int(phase_start),
+             tgt.data_ptr(), bid.data_ptr(),
+             torch.cuda.current_stream(ids.device).cuda_stream)
+    _build.check(err, "bid_topk_batched")
+    bid_topk_batched.launches += 1
+    return tgt, bid
+
+
+bid_topk_batched.launches = 0

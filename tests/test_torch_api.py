@@ -176,7 +176,7 @@ def test_infeasible_raises():
 @pytest.mark.parametrize("kw", [
     dict(mode="sharded"), dict(mode="overlapped"),
     dict(mode="sharded_hybrid"), dict(engine="candidates"),
-    dict(engine="dense"),
+    dict(engine="candidates", mode="hybrid"),
 ])
 def test_unported_modes_and_engines_raise(kw):
     loc, val = _instance(12, 50, True)
@@ -194,8 +194,9 @@ def test_unported_paths_raise_instead_of_rerouting():
                  P.auction_solve(loc=loc, val=val, shape=(40, 60),
                                  mode="hybrid", device="cpu"))
     dense = rng.integers(1, 100, (64, 64))      # auto picks engine='dense'
-    with pytest.raises(NotImplementedError, match="dense"):
-        P.auction_solve(dense, mode="hybrid", device="cpu")
+    got = P.auction_solve(dense, mode="hybrid", device="cpu")
+    assert got["meta"]["engine"] == "dense"
+    _assert_same(R.auction_solve(dense, mode="hybrid"), got)
     assert P.auction_solve(dense, mode="hybrid", engine="compact",
                            device="cpu")["meta"]["soln_found"]
     for mode in ("hybrid", "device"):
@@ -383,3 +384,96 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---- engine='dense': the single-instance route into the batched dense
+# engine (the mirror of tests/test_dense_engine.py, port against reference)
+
+
+def _dense_instance(n, seed=0, forbidden_frac=0.0):
+    rng = np.random.default_rng(seed)
+    C = rng.integers(1, 1000, (n, n)).astype(np.float32)
+    if forbidden_frac:
+        mask = rng.random((n, n)) < forbidden_frac
+        np.fill_diagonal(mask, False)        # keep it feasible
+        C = np.where(mask, -1.0, C)
+    return C
+
+
+def _scipy_obj(C, maximize=False):
+    A = C.astype(np.float64)
+    A = np.where(C < 0, -np.inf if maximize else np.inf, A)
+    r, c = scipy_lsa(A, maximize=maximize)
+    return float(C.astype(np.float64)[r, c].sum())
+
+
+@pytest.mark.parametrize("case", [
+    dict(n=96), dict(n=64, seed=3, forbidden_frac=0.3),
+    dict(n=48, seed=5, problem="max"), dict(n=40, seed=6, integer=True),
+])
+def test_dense_engine_matches_reference_and_scipy(case):
+    case = dict(case)
+    n, problem = case.pop("n"), case.pop("problem", "min")
+    integer = case.pop("integer", False)
+    C = _dense_instance(n, **case)
+    C = C.astype(np.int64) if integer else C
+    r = R.auction_solve(C, mode="hybrid", engine="dense", problem=problem)
+    p = P.auction_solve(C, mode="hybrid", engine="dense", problem=problem,
+                        device="cpu")
+    _assert_same(r, p)
+    assert p["meta"]["soln_found"] and p["meta"]["engine"] == "dense"
+    assert p["meta"]["mode"] == "hybrid"
+    assert p["meta"]["obj"] == _scipy_obj(C, maximize=problem == "max")
+    assert (C[np.arange(n), p["sol"]] >= 0).all()
+
+
+def test_auto_engine_picks_dense_and_keeps_compact_for_sparse():
+    C = _dense_instance(64, seed=7)
+    s = P.AuctionSolver(C, mode="hybrid", device="cpu")      # engine='auto'
+    res = s.solve()
+    assert res["meta"]["engine"] == "dense"
+    _assert_same(R.AuctionSolver(C, mode="hybrid").solve(), res)
+    assert s.prices is not None and s.prices.shape == (64,)
+    rng = np.random.default_rng(11)
+    n = 64
+    S = np.full((n, n), -1.0)
+    S[np.arange(n), rng.permutation(n)] = 5.0
+    S[np.arange(n), np.arange(n)] = rng.integers(1, 9, n).astype(float)
+    res = P.AuctionSolver(S, mode="hybrid", device="cpu").solve()
+    assert res["meta"].get("engine") != "dense" and res["meta"]["soln_found"]
+    # a warm-started solve keeps the compact engine, as in the reference
+    warm = P.AuctionSolver(C, mode="hybrid", device="cpu").solve(
+        warm_prices=s.prices)
+    assert warm["meta"].get("engine") != "dense"
+
+
+def test_dense_engine_requires_hybrid_and_rejects_warm_prices():
+    C = _dense_instance(32)
+    for mode in ("device", "cpu"):
+        with pytest.raises(ValueError, match="mode='hybrid'"):
+            P.auction_solve(C, mode=mode, engine="dense", device="cpu")
+    s = P.AuctionSolver(C, mode="hybrid", engine="dense", device="cpu")
+    with pytest.raises(ValueError, match="warm_prices"):
+        s.solve(warm_prices=np.zeros(32, np.float32))
+    with pytest.raises(ValueError, match="engine='dense' needs"):
+        P.auction_solve(C[:20], mode="hybrid", engine="dense", device="cpu")
+
+
+def test_dense_engine_config_bundle_and_serving_cache():
+    C = _dense_instance(48, seed=9)
+    cfg = P.AuctionConfig(mode="hybrid", engine="dense")
+    res = P.auction_solve(C, config=cfg, device="cpu")
+    _assert_same(R.auction_solve(C, config=R.AuctionConfig(
+        mode="hybrid", engine="dense")), res)
+    assert res["meta"]["engine"] == "dense"
+    # construct once: the second solve() reuses the dense block and the
+    # host CSR and returns the same assignment
+    C = _dense_instance(64, seed=3)
+    s = P.AuctionSolver(C, mode="hybrid", engine="dense", device="cpu")
+    r1 = s.solve()
+    assert "dense_dev" in s._device_cache and "dense_csr" in s._device_cache
+    dev_before = s._device_cache["dense_dev"]
+    r2 = s.solve()
+    assert s._device_cache["dense_dev"] is dev_before
+    _assert_same(r1, r2)
+    assert r2["meta"]["obj"] == _scipy_obj(C)

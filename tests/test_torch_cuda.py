@@ -1,9 +1,10 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch twin
 (K3 also against the native Gauss-Seidel engine, with and without its
 prefetch; the eps-phase ladder through the tiered solve against the same
-solve on the CPU), the GS micro-probe kernels (P1-P17) against their plain
-versions, and the hybrid (square and rectangular) and device-mode solves
-on CUDA against the same solves on the CPU.
+solve on the CPU; K1's batched entry and the dense bid kernel DK), the GS
+micro-probe kernels (P1-P17) against their plain versions, and the hybrid
+(square and rectangular), device-mode, batched and dense-engine solves on
+CUDA against the same solves on the CPU.
 
 Marked ``cuda``; every test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs where only torch is
@@ -25,8 +26,11 @@ from sslap_tpu_torch import auction as PA
 from sslap_tpu_torch import compact as PC
 from sslap_tpu_torch import hybrid as PH
 from sslap_tpu_torch.auction import neg_sentinel_np
-from sslap_tpu_torch.ops import bid_topk, bid_topk_plain, commit, \
-    commit_plain, gs_auction_device, gs_auction_plain, ladder_phase
+from sslap_tpu_torch import batch as PB
+from sslap_tpu_torch import dense_batch as PD
+from sslap_tpu_torch.ops import bid_topk, bid_topk_batched, \
+    bid_topk_batched_plain, bid_topk_plain, commit, commit_plain, dense_bid, \
+    dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase
 from sslap_tpu_torch.ops import probe_gs as PG
 
 pytestmark = pytest.mark.cuda
@@ -428,3 +432,177 @@ def test_ladder_kernel_crosses_the_tail_at_20k(dev, integer):
     (res, _), stats = _ladder_on_both(
         c, trunc=256, tiers=PC.default_tiers(n, fine=True, floor=256))
     assert stats["grid_rounds"] > res.phases and stats["tail_rounds"] > 0
+
+
+# ---- the batched solves: K1's batched entry, DK, and the solves on CUDA
+
+
+def _dense_block(rng, B, n, m, dtype, dev):
+    """[B, n, m] values (missing = the neg sentinel; rows with 0, 1 and 2
+    entries; ties), prices, sigma, per-instance eps."""
+    neg = neg_sentinel_np(dtype)
+    mask = rng.random((B, n, m)) < 0.4
+    mask[:, 0] = False
+    mask[:, 1] = False
+    mask[:, 1, 2] = True
+    mask[:, 2] = False
+    mask[:, 2, [0, m - 1]] = True
+    if dtype == np.float32:
+        vals = -(rng.random((B, n, m)) * 999 + 1).astype(np.float32)
+        vals[:, 3::7] = -2.5 * rng.integers(1, 4, vals[:, 3::7].shape)
+        prices = (rng.random((B, m)) * 300).astype(np.float32)
+        eps = (rng.random(B) + 0.1).astype(np.float32)
+        bigp = np.float32(1000.0)
+    else:
+        vals = -rng.integers(1, 6, (B, n, m)).astype(np.int32) * 7
+        prices = rng.integers(0, 4, (B, m)).astype(np.int32) * 7
+        eps = rng.integers(1, 4, B).astype(np.int32)
+        bigp = np.int32(36)
+    sigma = np.where(rng.random((B, n)) < 0.3, rng.integers(0, m, (B, n)),
+                     -1).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(np.where(mask, vals, neg)), t(mask.sum(2).astype(np.int32)
+                                           .ravel()),
+            t(prices.ravel()), t(sigma.ravel()), t(eps), bigp)
+
+
+@pytest.mark.parametrize("m", [256, 250])          # 16-byte loads, scalar
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_dense_bid_kernel_matches_plain(dev, dtype, m):
+    rng = np.random.default_rng(40)
+    B, n = 3, 300
+    A, nvalid, prices, sigma, eps, bigp = _dense_block(rng, B, n, m, dtype,
+                                                       dev)
+    full = torch.arange(B * n, dtype=torch.int32, device=dev)
+    part = torch.full((512,), B * n, dtype=torch.int32, device=dev)
+    part[:400] = torch.from_numpy(np.sort(rng.choice(B * n, 400,
+                                                     replace=False))
+                                  .astype(np.int32)).to(dev)
+    for ids in (full, part):
+        dense_bid.launches = 0
+        got = dense_bid(ids, A, nvalid, prices, sigma, eps, bigp,
+                        with_v1=True)
+        want = dense_bid_plain(ids, A, nvalid, prices, sigma, eps, bigp,
+                               with_v1=True)
+        torch.cuda.synchronize()
+        assert dense_bid.launches == 1
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+        assert int((got[0] < B * m).sum()) > 0
+
+
+@pytest.mark.parametrize("phase_start", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_batched_bid_kernel_matches_plain(dev, dtype, phase_start):
+    """K1's batched entry over three instances flattened (rows b n + r,
+    columns b m + c), each with its own eps and bigp."""
+    rng = np.random.default_rng(41)
+    B, n, K = 3, 2000, 10
+    parts = [_state(rng, n, K, dtype, dev) for _ in range(B)]
+    cat = lambda k: torch.cat([p_[k] for p_ in parts])  # noqa: E731
+    off = lambda b: b * n  # noqa: E731
+    cols = torch.cat([p_["cols"] + off(b) for b, p_ in enumerate(parts)])
+    sigma = torch.cat([torch.where(p_["sigma"] >= 0, p_["sigma"] + off(b),
+                                   -1) for b, p_ in enumerate(parts)])
+    owner = torch.cat([torch.where(p_["owner"] >= 0, p_["owner"] + off(b),
+                                   -1) for b, p_ in enumerate(parts)])
+    tdt = torch.float32 if dtype == np.float32 else torch.int32
+    eps = torch.tensor([p_["eps"] * (b + 1) for b, p_ in enumerate(parts)],
+                       dtype=tdt, device=dev)
+    bigp = torch.tensor([p_["bigp"] + b for b, p_ in enumerate(parts)],
+                        dtype=tdt, device=dev)
+    sig = sigma.cpu().numpy()
+    nv = cat("nvalid").cpu().numpy()
+    live = np.flatnonzero(((sig < 0) & (nv > 0))
+                          | (phase_start & (sig >= 0)))
+    ids = torch.full((B * n,), B * n, dtype=torch.int32, device=dev)
+    ids[:live.shape[0]] = torch.from_numpy(live.astype(np.int32)).to(dev)
+    outs = []
+    for fn in (bid_topk_batched, bid_topk_batched_plain):
+        s_, o_ = sigma.clone(), owner.clone()
+        tgt, bid = fn(ids, cols, cat("vals_m"), cat("nvalid"),
+                      cat("prices"), s_, o_, eps, bigp, n,
+                      phase_start=phase_start)
+        outs.append((tgt, bid, s_, o_))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def _batched_instances(B, n, seed, integer, k=12):
+    rng = np.random.default_rng(seed)
+    probs = []
+    for _ in range(B):
+        rr = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
+        cc = np.concatenate([rng.integers(0, n, n * k), rng.permutation(n)])
+        _, idx = np.unique(rr * n + cc, return_index=True)
+        val = (rng.integers(1, 1000, idx.shape[0]) if integer else
+               (rng.random(idx.shape[0]) * 999 + 1).astype(np.float32))
+        probs.append(P.from_coo(np.stack([rr[idx], cc[idx]], 1), val,
+                                shape=(n, n), pad_to=k + 2))
+    return PB.stack_problems(probs)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_batched_device_mode_on_cuda_matches_cpu(dev, integer):
+    """mode='device' at B = 4, n = 256: one batched K1 and one K2 launch a
+    round; sols, prices bits, rounds, phases as on the CPU."""
+    prob = _batched_instances(4, 256, 42, integer)
+    bid_topk_batched.launches = commit.launches = 0
+    g = PB.auction_solve_batched(prob, mode="device", device="cuda")
+    rounds = max(mt["its"] for mt in g[1])
+    assert bid_topk_batched.launches == commit.launches == rounds > 0
+    c = PB.auction_solve_batched(prob, mode="device", device="cpu")
+    np.testing.assert_array_equal(g[0], c[0])
+    for a, b in zip(g[1], c[1]):
+        for k in ("its", "phases", "final_eps", "obj", "soln_found"):
+            assert a[k] == b[k], k
+    vmax = float(np.abs(prob.vals).max())
+    tr = PA.make_transform("min", 256, prob.vals.dtype, vmax)
+    e0, e_min, theta = PA.default_eps_schedule(prob.vals.dtype, vmax, 256,
+                                               tr.scale)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (prob.cols, tr.apply(prob.vals), prob.valid, prob.nvalid,
+             np.zeros((4, 256), prob.vals.dtype))]
+    res = [PB.solve_ell_batched(*[a.to(d) for a in args], e0, e_min, theta,
+                                PA.default_max_iter(256))
+           for d in (dev, torch.device("cpu"))]
+    np.testing.assert_array_equal(_bits(res[0].prices), _bits(res[1].prices))
+    np.testing.assert_array_equal(res[0].sigma.cpu(), res[1].sigma)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_batched_dense_hybrid_on_cuda_matches_cpu(dev, integer):
+    """mode='hybrid' at B = 4, n = 256 (trunc 8, so rounds run): one DK and
+    one K2 launch a round, plus one DK launch per violator scan; sols,
+    prices bits, its, phases, host bids as on the CPU."""
+    prob = _batched_instances(4, 256, 43, integer)
+    dense_bid.launches = commit.launches = 0
+    g = PD.solve_batched_dense_hybrid(prob, trunc=8, return_prices=True,
+                                      device="cuda")
+    rounds = max(mt["its"] for mt in g[1])
+    assert commit.launches == rounds > 0
+    assert dense_bid.launches > rounds
+    c = PD.solve_batched_dense_hybrid(prob, trunc=8, return_prices=True,
+                                      device="cpu")
+    np.testing.assert_array_equal(g[0], c[0])
+    np.testing.assert_array_equal(g[2].view(np.int32), c[2].view(np.int32))
+    for a, b in zip(g[1], c[1]):
+        for k in ("its", "phases", "host_bids", "final_eps", "obj",
+                  "soln_found"):
+            assert a[k] == b[k], k
+    assert all(mt["soln_found"] for mt in g[1])
+
+
+def test_dense_engine_on_cuda_matches_cpu(dev):
+    rng = np.random.default_rng(44)
+    C = rng.integers(1, 1000, (300, 300))
+    g = P.AuctionSolver(C, mode="hybrid", device="cuda")
+    r1, r2 = g.solve(), g.solve()
+    c = P.AuctionSolver(C, mode="hybrid", device="cpu").solve()
+    for r in (r1, r2):
+        assert r["meta"]["engine"] == "dense"
+        np.testing.assert_array_equal(r["sol"], c["sol"])
+        np.testing.assert_array_equal(r["prices"], c["prices"])
+        for k in ("its", "phases", "host_bids", "obj", "soln_found"):
+            assert r["meta"][k] == c["meta"][k], k

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``sslap_tpu_torch`` and everything
-``chip_smoke.py`` imports, then solving a small instance on the CPU
-through the native host runtime, loads no jax and no file of the JAX
+"""The port stands alone: importing ``sslap_tpu_torch`` (the batched
+modules included) and everything ``chip_smoke.py`` imports, then solving a
+small instance and a small batch on the CPU through the native host
+runtime, loads no jax and no file of the JAX
 package (``sslap_tpu/``), and the port's native library is its own build
 under ``sslap_tpu_torch/_build/native/``.  Checked in a fresh interpreter
 (this test process has jax loaded by the test harness).
@@ -19,6 +20,8 @@ import json, sys
 import numpy as np
 import chip_smoke  # noqa: F401  (its imports)
 import sslap_tpu_torch as P
+import sslap_tpu_torch.batch as PB
+import sslap_tpu_torch.dense_batch  # noqa: F401
 from sslap_tpu_torch import _native
 rng = np.random.default_rng(0)
 n, k = 300, 6
@@ -29,13 +32,16 @@ loc = np.stack([rr[idx], cc[idx]], 1)
 val = rng.integers(1, 100, idx.shape[0])
 res = P.AuctionSolver(loc=loc, val=val, shape=(n, n), mode="hybrid",
                       device="cpu").solve()
+batch = PB.stack_problems([P.from_coo(loc, val, shape=(n, n))] * 2)
+_, metas = PB.auction_solve_batched(batch, mode="hybrid", device="cpu")
 print(json.dumps({
     "modules": {name: getattr(mod, "__file__", None)
                 for name, mod in list(sys.modules.items())},
     "runtime": [_native._build.__file__, _native.gs_host.__file__],
     "native": _native.native_available(),
     "native_lib": getattr(_native._lib, "_name", None),
-    "soln_found": res["meta"]["soln_found"],
+    "soln_found": res["meta"]["soln_found"]
+    and all(mt["soln_found"] for mt in metas),
 }))
 """
 
@@ -56,6 +62,8 @@ def test_port_loads_nothing_of_the_jax_package():
     assert not [f for f in list(names.values()) + got["runtime"]
                 if f and f.startswith(ref)]
     assert "sslap_tpu_torch.native.build" in names
+    assert "sslap_tpu_torch.batch" in names
+    assert "sslap_tpu_torch.dense_batch" in names
     assert "sslap_tpu_torch.gs_host" in names
     if got["native"]:
         lib = Path(got["native_lib"]).resolve()
