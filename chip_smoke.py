@@ -1,6 +1,7 @@
 """Drive the PyTorch + CUDA port (``sslap_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase (below)
+    python3 chip_smoke.py --k12 LABEL   # K1 and K2's timings alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -12,7 +13,16 @@ of which raises on failure (so the exit code is non-zero):
                  1M), float32 and int32, plus a tie-heavy resolve case.
                  Tolerance: exact (targets, winners, owner and sigma equal;
                  bids and prices bit for bit).  Times from CUDA events,
-                 median of reps.  Then the ladder kernel (ops.ladder_phase,
+                 median of reps of one call each (which includes the
+                 wrapper's host launch overhead, ~30-40 us), and for the
+                 kernels also device time per call of calls queued back
+                 to back behind a sleep kernel (CUDA events around them;
+                 ms_device).  At C = 1M each kernel's byte bound and the
+                 share of it reached, and two limiter readings (back to
+                 back): K1 with every column folded into 0..31 (its price
+                 gathers then hit L1, not random L2 sectors) and K2 with
+                 no bidder (its two launches and the streaming of its
+                 id lists).  Then the ladder kernel (ops.ladder_phase,
                  one launch per eps phase) against its plain version (the
                  host loop over K1's and K2's plain versions) on the
                  headline's device pass (the instance of phase 5, built
@@ -53,7 +63,8 @@ of which raises on failure (so the exit code is non-zero):
                  (as in the reference): the device solve runs them as
                  float32 and is held to the eps-optimality bound m *
                  eps_min against the exact mode="cpu" objective (equality
-                 is reported)
+                 is reported), and bit for bit to the same float32 hybrid
+                 solve with device="cpu" (K1's and K2's plain versions)
   8. jacobi   -- CUDA against CPU, bit for bit: the rectangular hybrid at
                  10k x 20k (int32), mode="device" at 10k x 10k (float32)
                  and at 10k x 20k (int32, capped at 1,000 rounds: the
@@ -76,17 +87,20 @@ of which raises on failure (so the exit code is non-zero):
                  instances, C = all 131,072 rows and C = 256 + pads) and
                  K1's batched entry (ops.bid_topk_batched) on the flattened
                  ELL of 32 instances (mode="device"'s pass) and of all 256,
-                 exact, timed with CUDA events beside
-                 their byte bounds; auction_solve_batched with
+                 and K2 on the first round of mode="device" over the 32,
+                 exact, timed as in phase 3 beside their byte bounds (K2
+                 also with no bidder); auction_solve_batched with
                  mode="hybrid" (cold; a second call with the default
                  mode 'auto', which must route there; the batch as one
                  chunk), "cpu", and "device" on the first 32 instances,
                  each with inst/s, device_time / host_gs_time, rounds,
                  launches (DK and K2; K1 batched and K2) and the max over
                  instances of |obj - obj_cpu| against n * final_eps (every
-                 instance must be found and within it); a torch.profiler
-                 window over chunk 0's device pass (DK's share of the
-                 device time, the idle share); CUDA == CPU bit for bit at
+                 instance must be found and within it); torch.profiler over
+                 one mode="device" call on the 32 (K1, K2, torch ops and
+                 idle, per round) and over chunk 0's device pass (DK's
+                 share of the device time, the idle share, K2's time and
+                 launches); CUDA == CPU bit for bit at
                  B = 4, n = 256 (dense hybrid and batched Jacobi); and
                  AuctionSolver(mode="hybrid") on a dense 4096 x 4096
                  matrix, which takes engine="dense": float32 cold and
@@ -101,8 +115,8 @@ rectangular hybrid of phase 7, their path since the square hybrid runs the
 ladder, with batched_launches beside from phase 10: K1's batched entry in
 mode="device", K2 in both batched modes; DK: the cold config-3 hybrid
 solve; K3: the two tail runs; P1-P17: the probe suite), its time and its
-plain version's time (K1, K2: C = 1M, float32; the ladder: the pass of
-phase 3; K3: the first 20,000 bids of the tail, with ms_noprefetch beside;
+plain version's time (K1, K2: C = 1M, float32, with ms_device beside;
+the ladder: the pass of phase 3; K3: the first 20,000 bids of the tail, with ms_noprefetch beside;
 P1-P17: the reference shapes, P16/P17 at stage 3, with ns/iteration or
 ns/bid of the scaled runs beside), its bound (bound_ms, bound_by,
 bound_bytes: each input read once and each output written once on that
@@ -113,15 +127,32 @@ row copies of P1-P3, P6 and P9; else null).  DK's entry is at C = 131,072
 (the first round of a chunk), with its C = 256 numbers beside; K1's
 carries its batched entry's numbers as batched_* (a chunk of 32 instances,
 131,072 rows, as mode="device" runs it; all 256 instances as
-batched_all_*).  The last line is
+batched_all_*), K2's its first round on that chunk as batched_*, both their
+device time in one mode="device" call as batched_device_mode_ms, and the
+limiter readings as ms_local_gathers (K1 at 1M) / ms_no_bidder.  The last
+line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
+
+--k12 LABEL runs only the K1 and K2 measurements: phase 3's at C = 1M
+(float32; times, bounds, limiters, scatter_reduce_), phase 10's on config 3
+(K1's batched entry on the chunk of 32 and on all 256, K2 on the chunk's
+first round, the profiler over chunk 0's dense pass) and one mode="device"
+solve of the chunk (wall time, rounds, objectives, then its profiler
+split), each kernel checked against its plain version on the way, and
+prints them as one line "K12 LABEL {...}" (no contract line).  The script
+imports sslap_tpu_torch from its own directory, so a copy of it placed at
+the root of another tree of this repository (an older commit unpacked with
+git archive) measures that tree's kernels with this code: run the two
+trees in turns (A, B, B, A) in one process sequence on one card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -344,6 +375,35 @@ def _median_ms(prepare, run, reps: int) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in marks]))
 
 
+def _device_ms(prepare, run, reps: int) -> float:
+    """Device time of run(*prepare()) per call: reps calls (inputs prepared
+    first) queued back to back behind a sleep kernel, CUDA events around
+    them.  CUDA events around one call of a kernel of tens of us also
+    catch the host's launch overhead (the Python wrapper's checks and
+    ctypes call take ~30-40 us): the GPU idles between the first event and
+    the launch.  run must not synchronise.  Raises if the queue ran dry."""
+    run(*prepare())
+    cycles = 50_000_000
+    for _ in range(4):
+        args = [prepare() for _ in range(reps)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for a in args:
+            run(*a)
+        t1.record()
+        # the sleep ended before the last call was queued: the GPU may
+        # have waited for the host
+        dry = t0.query()
+        torch.cuda.synchronize()
+        if not dry:
+            return t0.elapsed_time(t1) / reps
+        cycles *= 4
+    raise RuntimeError("the launch queue ran dry behind the sleep kernel")
+
+
 def _check_pair(st, ids, phase_start, reps, keys):
     """K1 then K2 on one round's inputs, kernel vs twin; returns
     (errors, times) dicts keyed by kernel name."""
@@ -382,18 +442,23 @@ def _check_pair(st, ids, phase_start, reps, keys):
         raise AssertionError("commit kernel differs from its twin")
     errs["commit"] = _abs_err(got[0], want[0])
 
-    times = {}
-    for name, fn in (("bid_topk", bid_topk), ("bid_topk_plain",
-                                              bid_topk_plain)):
-        times[name] = _median_ms(fresh, lambda p, s, o, fn=fn: k1(fn, p, s,
-                                                                   o), reps)
+    # single timed calls (the time kept since PR 1, the wrapper's launch
+    # overhead included), the kernels' back-to-back device time beside
+    def run1(fn):
+        return lambda p, s, o: k1(fn, p, s, o)
 
     def fresh2():
         return [a.clone() for a in after1]
-    times["commit"] = _median_ms(
-        fresh2, lambda p, s, o: k2(commit, p, s, o, keys=keys), reps)
-    times["commit_plain"] = _median_ms(
-        fresh2, lambda p, s, o: k2(commit_plain, p, s, o), reps)
+
+    def run2(**kw):
+        return lambda p, s, o: k2(commit if kw else commit_plain, p, s, o,
+                                  **kw)
+    times = {"bid_topk": _median_ms(fresh, run1(bid_topk), reps),
+             "bid_topk_device": _device_ms(fresh, run1(bid_topk), reps),
+             "bid_topk_plain": _median_ms(fresh, run1(bid_topk_plain), reps),
+             "commit": _median_ms(fresh2, run2(keys=keys), reps),
+             "commit_device": _device_ms(fresh2, run2(keys=keys), reps),
+             "commit_plain": _median_ms(fresh2, run2(), reps)}
     return errs, times, int(out_k[2][0]), int((tk < st["m"]).sum())
 
 
@@ -428,30 +493,21 @@ def _check_ties(rng, st, dtype, keys, dev):
     return int(out_k[2][0])
 
 
-def _k12_bounds(st, ids, reps):
-    """Bounds of K1 and K2 on one phase-start round's inputs (each input
-    read once: the live rows, the distinct columns they touch; each output
-    written once: tgt, bid, stay, evicted, the changed table entries), and
+def _k2_bound(ids, tgt, bid, prices, owner, sigma, reps):
+    """K2's bound on one round's bids (each input read once: ids, tgt, bid
+    and, per distinct column bid on, its key, price and owner; each output
+    written once: stay, evicted, the changed table entries, counts), and
     the one PyTorch call that computes K2's resolve, scatter_reduce_ amax
-    on the 64-bit (bid, ~row) keys, timed (K1 has none)."""
-    n, m, K = st["n"], st["m"], st["cols"].shape[1]
+    on the 64-bit (bid, ~row) keys, timed."""
+    m = prices.shape[0]
     C = ids.shape[0]
-    p, s, o = (st[k].clone() for k in ("prices", "sigma", "owner"))
-    tgt, bid = bid_topk_plain(ids, st["cols"], st["vals_m"], st["nvalid"],
-                              p, s, o, st["eps"], st["bigp"],
-                              phase_start=True)
-    rows = ids[ids < n].long()
-    ucols = torch.unique(st["cols"][rows]).numel()
-    viol = int((s != st["sigma"]).sum()) + int((o != st["owner"]).sum())
-    k1 = _bound(4 * C + rows.numel() * (8 * K + 8) + 4 * ucols + 8 * C
-                + 4 * viol, 3 * rows.numel() * K)
-    p2, o2, s2 = p.clone(), o.clone(), s.clone()
+    p2, o2, s2 = prices.clone(), owner.clone(), sigma.clone()
     commit_plain(ids, tgt, bid, p2, o2, s2)
     bidding = tgt < m
     U = torch.unique(tgt[bidding]).numel()
-    changed = int((p2.view(torch.int32) != p.view(torch.int32)).sum()
-                  + (o2 != o).sum() + (s2 != s).sum())
-    k2 = _bound(20 * C + 20 * U + 4 * changed + 12, int(bidding.sum()))
+    changed = int((p2.view(torch.int32) != prices.view(torch.int32)).sum()
+                  + (o2 != owner).sum() + (s2 != sigma).sum())
+    bound = _bound(20 * C + 20 * U + 4 * changed + 12, int(bidding.sum()))
     # (order bits - 2^31) * 2^32 + (2^32 - 1 - row): signed int64 order ==
     # the kernel's unsigned key order
     b = torch.where(bid == 0, torch.zeros_like(bid), bid)
@@ -462,7 +518,48 @@ def _k12_bounds(st, ids, reps):
     idx = tgt.long()
     lib_ms = _median_ms(lambda: (), lambda: best.scatter_reduce_(
         0, idx, key, "amax"), reps)
+    return bound, lib_ms
+
+
+def _k12_bounds(st, ids, reps):
+    """Bounds of K1 and K2 on one phase-start round's inputs (K1: each
+    input read once, the live rows and the distinct columns they touch;
+    each output written once, tgt, bid and the violators' entries; K2 as
+    _k2_bound), and K2's library time (K1 has none)."""
+    n, K = st["n"], st["cols"].shape[1]
+    C = ids.shape[0]
+    p, s, o = (st[k].clone() for k in ("prices", "sigma", "owner"))
+    tgt, bid = bid_topk_plain(ids, st["cols"], st["vals_m"], st["nvalid"],
+                              p, s, o, st["eps"], st["bigp"],
+                              phase_start=True)
+    rows = ids[ids < n].long()
+    ucols = torch.unique(st["cols"][rows]).numel()
+    viol = int((s != st["sigma"]).sum()) + int((o != st["owner"]).sum())
+    k1 = _bound(4 * C + rows.numel() * (8 * K + 8) + 4 * ucols + 8 * C
+                + 4 * viol, 3 * rows.numel() * K)
+    k2, lib_ms = _k2_bound(ids, tgt, bid, p, o, s, reps)
     return k1, k2, lib_ms
+
+
+def _limiters(st, ids, reps, keys):
+    """What holds K1 and K2 back, read from their times on altered inputs
+    of the same shape: K1 with every column folded into 0..31 (the K price
+    gathers of a row then hit a few L1-resident lines instead of random
+    32-byte L2 sectors), and K2 with no bidder (tgt = m: its two launches
+    and the streaming of tgt, stay and evicted, no atomic and no table
+    access).  Device time of calls queued back to back."""
+    cols_local = st["cols"] % 32
+    fresh = lambda: [st[k].clone() for k in ("prices", "sigma", "owner")]  # noqa
+    k1_local = _device_ms(fresh, lambda p, s, o: bid_topk(
+        ids, cols_local, st["vals_m"], st["nvalid"], p, s, o, st["eps"],
+        st["bigp"], phase_start=True), reps)
+    none = torch.full_like(ids, st["m"])
+    zero = torch.zeros(ids.shape[0], dtype=st["prices"].dtype,
+                       device=ids.device)
+    k2_empty = _device_ms(fresh, lambda p, s, o: commit(
+        ids, none, zero, p, o, s, keys=keys), reps)
+    return {"bid_topk": {"ms_local_gathers": k1_local},
+            "commit": {"ms_no_bidder": k2_empty}}
 
 
 def phase_kernels(n=N_HEAD, K=K_HEAD, capacities=(256, 3072, N_HEAD),
@@ -485,17 +582,25 @@ def phase_kernels(n=N_HEAD, K=K_HEAD, capacities=(256, 3072, N_HEAD),
                 errs[k] = max(errs[k], v)
             log(f"[3 kernels] {np.dtype(dtype).name} C={C} "
                 f"phase_start={C == n}: {bids} bids, {won} won; "
-                f"bid_topk {t['bid_topk']:.4f} ms (twin "
-                f"{t['bid_topk_plain']:.4f} ms), commit {t['commit']:.4f} "
-                f"ms (twin {t['commit_plain']:.4f} ms); exact")
+                f"bid_topk {t['bid_topk']:.4f} ms (back to back "
+                f"{t['bid_topk_device']:.4f}, twin {t['bid_topk_plain']:.4f}"
+                f" ms), commit {t['commit']:.4f} ms (back to back "
+                f"{t['commit_device']:.4f}, twin {t['commit_plain']:.4f} "
+                f"ms); exact")
             if C == n and dtype == np.float32:
                 headline = t
                 k1, k2, lib_ms = _k12_bounds(st, ids, reps)
                 headline["bounds"] = {"bid_topk": k1, "commit": k2}
                 headline["library"] = {"bid_topk": None, "commit": lib_ms}
-                log(f"[3 kernels] bound at C={C}: bid_topk {k1}, commit "
-                    f"{k2}; scatter_reduce_ amax (K2's resolve) "
-                    f"{lib_ms:.4f} ms")
+                headline["limiters"] = _limiters(st, ids, reps, keys)
+                log(f"[3 kernels] bound at C={C}: bid_topk {k1} = "
+                    f"{k1['bound_ms'] / t['bid_topk']:.1%} of it reached "
+                    f"({k1['bound_ms'] / t['bid_topk_device']:.1%} back to "
+                    f"back), commit {k2} = "
+                    f"{k2['bound_ms'] / t['commit']:.1%} ("
+                    f"{k2['bound_ms'] / t['commit_device']:.1%}); "
+                    f"scatter_reduce_ amax (K2's resolve) {lib_ms:.4f} ms; "
+                    f"limiters (ms): {headline['limiters']}")
         won = _check_ties(rng, st, dtype, keys, dev)
         log(f"[3 kernels] {np.dtype(dtype).name} ties/+-0/negative bids "
             f"C=3072: {won} won; exact")
@@ -949,6 +1054,19 @@ def phase_rect(n=100_000, m=200_000):
     log(f"[7 rect] {n}x{m}, nnz {loc.shape[0]}: hybrid on the card "
         f"(float32) {hy_s:.3f} s; {_meta_line(hy['meta'])}; launches "
         f"K1 {launches[0]}, K2 {launches[1]}")
+    # the same solve on the CPU runs K1's and K2's plain versions
+    t0 = time.perf_counter()
+    hc = AuctionSolver(mode="hybrid", device="cpu", dtype=np.float32,
+                       **kw).solve()
+    if not (np.array_equal(hy["sol"], hc["sol"])
+            and np.array_equal(hy["prices"].view(np.int32),
+                               hc["prices"].view(np.int32))
+            and all(hy["meta"][k] == hc["meta"][k]
+                    for k in ("its", "phases", "host_bids", "obj"))):
+        raise AssertionError("rectangular hybrid: CUDA != CPU")
+    log(f"[7 rect] hybrid with device='cpu' (K1, K2 plain) "
+        f"{time.perf_counter() - t0:.3f} s: == CUDA bit for bit (sol, "
+        f"prices, its, phases, host bids, obj)")
     t0 = time.perf_counter()
     ex = AuctionSolver(mode="cpu", **kw).solve()
     ex_s = time.perf_counter() - t0
@@ -1302,34 +1420,42 @@ def _dense_bid_check(batch, dev):
     return out
 
 
+def batched_k1_args(batch, B, dev):
+    """K1's batched-entry arguments on the flattened ELL of the first B
+    instances: every row bids, random prices, per-instance eps and bigp."""
+    _, n, K = batch.cols.shape
+    valid = batch.valid[:B]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    base = (np.arange(B, dtype=np.int32) * n)[:, None, None]
+    cols = t((batch.cols[:B] + base).reshape(B * n, K))
+    vals_m = t(np.where(valid, -batch.vals[:B],
+                        neg_sentinel_np(np.float32)).reshape(B * n, K))
+    nvalid = t(batch.nvalid[:B].reshape(-1).astype(np.int32))
+    rng = np.random.default_rng(7)
+    prices = t((rng.random(B * n) * 500).astype(np.float32))
+    sigma = torch.full((B * n,), -1, dtype=torch.int32, device=dev)
+    owner = torch.full((B * n,), -1, dtype=torch.int32, device=dev)
+    eps = t((rng.random(B) + 0.5).astype(np.float32))
+    vmax = np.where(valid, -batch.vals[:B], -np.inf).max(axis=(1, 2))
+    vmin = np.where(valid, -batch.vals[:B], np.inf).min(axis=(1, 2))
+    bigp = t((vmax - vmin + 1).astype(np.float32))
+    ids = torch.arange(B * n, dtype=torch.int32, device=dev)
+    return (ids, cols, vals_m, nvalid, prices, sigma, owner, eps, bigp, n)
+
+
 def _batched_k1_check(batch, dev):
     """K1's batched entry against its plain version, exact, on the
     flattened ELL of a chunk of 32 instances (the pass mode='device' runs:
     131,072 rows, eps and bigp arrays of 32) and of all 256 instances
     (1,048,576 rows); every row bids, per-instance eps and bigp.  Timed
-    with CUDA events.  Returns the chunk's numbers, the whole batch's
-    beside them as all_*."""
+    as single calls (ms) and back to back (ms_device).  Returns the chunk's
+    numbers, the whole batch's beside them as all_*."""
     out = {}
     for B in (CHUNK3, batch.cols.shape[0]):
-        _, n, K = batch.cols.shape
-        valid = batch.valid[:B]
+        args = batched_k1_args(batch, B, dev)
+        cols, valid = args[1], batch.valid[:B]
+        n, K = args[-1], cols.shape[1]
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-        base = (np.arange(B, dtype=np.int32) * n)[:, None, None]
-        cols = t((batch.cols[:B] + base).reshape(B * n, K))
-        vals_m = t(np.where(valid, -batch.vals[:B],
-                            neg_sentinel_np(np.float32)).reshape(B * n, K))
-        nvalid = t(batch.nvalid[:B].reshape(-1).astype(np.int32))
-        rng = np.random.default_rng(7)
-        prices = t((rng.random(B * n) * 500).astype(np.float32))
-        sigma = torch.full((B * n,), -1, dtype=torch.int32, device=dev)
-        owner = torch.full((B * n,), -1, dtype=torch.int32, device=dev)
-        eps = t((rng.random(B) + 0.5).astype(np.float32))
-        vmax = np.where(valid, -batch.vals[:B], -np.inf).max(axis=(1, 2))
-        vmin = np.where(valid, -batch.vals[:B], np.inf).min(axis=(1, 2))
-        bigp = t((vmax - vmin + 1).astype(np.float32))
-        ids = torch.arange(B * n, dtype=torch.int32, device=dev)
-        args = (ids, cols, vals_m, nvalid, prices, sigma, owner, eps, bigp,
-                n)
         got = bid_topk_batched(*args)
         want = bid_topk_batched_plain(*args)
         torch.cuda.synchronize()
@@ -1338,6 +1464,8 @@ def _batched_k1_check(batch, dev):
             raise AssertionError(f"bid_topk_batched != its plain version "
                                  f"({B} instances)")
         ms = _median_ms(lambda: (), lambda: bid_topk_batched(*args), 20)
+        ms_device = _device_ms(lambda: (), lambda: bid_topk_batched(*args),
+                               20)
         plain_ms = _median_ms(lambda: (),
                               lambda: bid_topk_batched_plain(*args), 3)
         C = B * n
@@ -1345,15 +1473,120 @@ def _batched_k1_check(batch, dev):
         bound = _bound(4 * C + C * (8 * K + 4) + 4 * ucols + 8 * B + 8 * C,
                        3 * C * K)
         log(f"[10 batch] bid_topk_batched C={C} (K={K}, {B} instances): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {bound}: "
-            f"{bound['bound_ms'] / ms:.1%} of the bound; exact")
+            f"kernel {ms:.4f} ms (back to back {ms_device:.4f}), plain "
+            f"{plain_ms:.4f} ms, {bound}: {bound['bound_ms'] / ms:.1%} of "
+            f"the bound ({bound['bound_ms'] / ms_device:.1%} back to back); "
+            f"exact")
         res = dict(max_abs_err=_abs_err(got[1], want[1]), ms=ms,
-                   plain_ms=plain_ms, **bound)
+                   ms_device=ms_device, plain_ms=plain_ms, **bound)
         if not out:
             out = res
         else:
             out.update({f"all_{k}": v for k, v in res.items()
                         if k != "bound_by"})
+    return out
+
+
+def _batched_k2_check(batch, dev):
+    """K2 on the first round of mode='device' over a chunk of 32 instances
+    (131,072 rows; as solve_ell_batched starts it: transformed costs, zero
+    prices, nothing assigned, the schedule's first eps, each instance's
+    bigp; every row with an entry bids, through K1's batched entry):
+    against its plain version, exact, keys all zero again; timed as single
+    calls (ms) and back to back (ms_device) beside its bound, its time with
+    no bidder (back to back), and scatter_reduce_'s resolve.  Returns the
+    kernels-line numbers."""
+    B, K = CHUNK3, batch.K
+    N = B * N3
+    valid = batch.valid[:B]
+    vmax_abs = float(np.abs(batch.vals[:B][valid]).max())
+    tr = A.make_transform("min", N3, np.float32, vmax_abs)
+    e0, _, _ = A.default_eps_schedule(np.float32, vmax_abs, N3, tr.scale)
+    vt = tr.apply(batch.vals[:B])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    base = (np.arange(B, dtype=np.int32) * N3)[:, None, None]
+    cols = t((batch.cols[:B] + base).reshape(N, K))
+    vals_m = t(np.where(valid, vt, neg_sentinel_np(np.float32))
+               .reshape(N, K))
+    nvalid = t(batch.nvalid[:B].reshape(-1).astype(np.int32))
+    inf = np.float32(np.inf)
+    bigp = t(np.where(valid, vt, -inf).max(axis=(1, 2))
+             - np.where(valid, vt, inf).min(axis=(1, 2)) + np.float32(1))
+    eps = torch.full((B,), float(e0), dtype=torch.float32, device=dev)
+    state = (torch.zeros(N, dtype=torch.float32, device=dev),
+             torch.full((N,), -1, dtype=torch.int32, device=dev),
+             torch.full((N,), -1, dtype=torch.int32, device=dev))
+    ids = torch.where(nvalid > 0, torch.arange(N, dtype=torch.int32,
+                                               device=dev), N)
+    tgt, bid = bid_topk_batched(ids, cols, vals_m, nvalid, state[0],
+                                state[1].clone(), state[2].clone(), eps,
+                                bigp, N3)
+    keys = torch.zeros(N, dtype=torch.int64, device=dev)
+    fresh = lambda: [a.clone() for a in state]  # noqa: E731
+    got, want = fresh(), fresh()
+    out_k = commit(ids, tgt, bid, got[0], got[2], got[1], keys=keys)
+    out_t = commit_plain(ids, tgt, bid, want[0], want[2], want[1])
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(out_k, out_t))
+            and _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[2], want[2])
+            and int(keys.count_nonzero()) == 0):
+        raise AssertionError("commit != its plain version on the chunk's "
+                             "first round")
+    run = lambda p, s, o: commit(ids, tgt, bid, p, o, s,  # noqa: E731
+                                 keys=keys)
+    ms = _median_ms(fresh, run, 20)
+    ms_device = _device_ms(fresh, run, 20)
+    plain_ms = _median_ms(fresh, lambda p, s, o: commit_plain(
+        ids, tgt, bid, p, o, s), 5)
+    none = torch.full_like(tgt, N)
+    empty_ms = _device_ms(fresh, lambda p, s, o: commit(
+        ids, none, bid, p, o, s, keys=keys), 20)
+    bound, lib_ms = _k2_bound(ids, tgt, bid, state[0], state[2], state[1],
+                              20)
+    log(f"[10 batch] commit, first round of a {B}-instance chunk (C={N}, "
+        f"{int((tgt < N).sum())} bids on {torch.unique(tgt[tgt < N]).numel()}"
+        f" columns, {int(out_k[2][0])} won): kernel {ms:.4f} ms (back to "
+        f"back {ms_device:.4f}), plain {plain_ms:.4f} ms, {bound}: "
+        f"{bound['bound_ms'] / ms:.1%} of the bound "
+        f"({bound['bound_ms'] / ms_device:.1%} back to back); no bidder "
+        f"{empty_ms:.4f} ms; scatter_reduce_ amax {lib_ms:.4f} ms; exact")
+    return dict(max_abs_err=_abs_err(got[0], want[0]), ms=ms,
+                ms_device=ms_device, plain_ms=plain_ms, ms_no_bidder=empty_ms,
+                library_ms=lib_ms, **bound)
+
+
+def _profile_device_chunk(sub):
+    """torch.profiler (device activity) over one mode='device' call on a
+    chunk of 32 config-3 instances: the device time of K1's batched entry,
+    of K2 and of the torch ops, and the idle share, in all and per round.
+    Returns the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metas = auction_solve_batched(sub, mode="device", device=DEVICE)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+
+    def device_ms(pred):
+        return 1e-3 * sum(e.self_device_time_total for e in events
+                          if pred(e.key))
+
+    k1 = device_ms(lambda k: "bid_kernel<" in k and "dense" not in k)
+    k2 = device_ms(lambda k: "commit_kernel<" in k or "resolve_kernel<" in k)
+    busy = device_ms(lambda k: True)
+    rounds = max(mt["its"] for mt in metas)
+    out = dict(rounds=rounds, window_ms=window_ms, busy_ms=busy, k1_ms=k1,
+               k2_ms=k2, torch_ops_ms=busy - k1 - k2,
+               idle_share=1 - busy / window_ms,
+               round_ms=window_ms / rounds)
+    log(f"[10 batch] profiler, mode='device' on {CHUNK3} instances "
+        f"({rounds} rounds): window {window_ms:.1f} ms ({window_ms / rounds:.4f}"
+        f" ms a round), device busy {busy:.1f} ms: K1 {k1:.1f}, K2 "
+        f"{k2:.1f}, torch ops {busy - k1 - k2:.1f} ms; idle share "
+        f"{1 - busy / window_ms:.3f}")
     return out
 
 
@@ -1381,7 +1614,8 @@ def _solve_line(name, secs, metas, cpu_objs, launches):
 
 def _profile_chunk(batch, dev):
     """torch.profiler over one chunk's device pass (dense block built
-    outside the window): DK's share of the device time, the idle share."""
+    outside the window): DK's share of the device time, the idle share,
+    and K2's device time and launches there.  Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     blk = DB._dense_from_ell(t(batch.cols[:CHUNK3]),
@@ -1406,6 +1640,9 @@ def _profile_chunk(batch, dev):
     busy = sum(e.self_device_time_total for e in events)
     dk = sum(e.self_device_time_total for e in events
              if "dense_bid_kernel" in e.key)
+    k2_us = sum(e.self_device_time_total for e in events
+                if "commit_kernel<" in e.key or "resolve_kernel<" in e.key)
+    k2_launches = sum(e.count for e in events if "commit_kernel<" in e.key)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     log(f"[10 batch] profiler, chunk 0's device pass ({CHUNK3} instances, "
         f"rounds max {out[2].max()}): window {window_us / 1e3:.2f} ms, device "
@@ -1413,7 +1650,10 @@ def _profile_chunk(batch, dev):
         f"DK {dk / 1e3:.2f} ms = {dk / max(busy, 1):.3f} of the device time;"
         f" top: " + ", ".join(
             f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
-            f"x{e.count}" for e in top))
+            f"x{e.count}" for e in top) + f"; K2 {k2_us / 1e3:.3f} ms in "
+        f"{k2_launches} launches")
+    return dict(window_ms=window_us / 1e3, busy_ms=busy / 1e3,
+                dk_ms=dk / 1e3, k2_ms=k2_us / 1e3, k2_launches=k2_launches)
 
 
 def _batch_parity(dev):
@@ -1498,13 +1738,14 @@ def _dense_engine():
 
 
 def phase_batch():
-    """Phase 10.  Returns the kernels-line numbers: DK's entry, and K1's
-    batched launches and times."""
+    """Phase 10.  Returns the kernels-line numbers: DK's entry, K1's and
+    K2's batched times, the device-mode profile, and the launches."""
     dev = torch.device(DEVICE)
     t_phase = time.perf_counter()
     batch = config3_batch()
     dk = _dense_bid_check(batch, dev)
     k1b = _batched_k1_check(batch, dev)
+    k2b = _batched_k2_check(batch, dev)
     dense_bid.launches = commit.launches = 0
     t0 = time.perf_counter()
     sols, cold = auction_solve_batched(batch, mode="hybrid", device=DEVICE)
@@ -1565,12 +1806,13 @@ def phase_batch():
             == rounds > 0):
         raise AssertionError(f"device launches {k1_launches}, rounds "
                              f"{rounds}")
+    prof = _profile_device_chunk(sub)
     _profile_chunk(batch, dev)
     del batch
     _batch_parity(dev)
     _dense_engine()
     log(f"[10 batch] phase 10 in {time.perf_counter() - t_phase:.1f} s")
-    return dk, k1b, launches, k1_launches
+    return dk, k1b, k2b, prof, launches, k1_launches
 
 
 def main() -> None:
@@ -1590,22 +1832,28 @@ def main() -> None:
     launches.update(phase_rect())
     phase_jacobi()
     probes = phase_probes()
-    dk, k1b, hy_launches, dev_launches = phase_batch()
-    # the batched paths of K1 (mode='device') and K2 (both batched modes)
+    dk, k1b, k2b, prof, hy_launches, dev_launches = phase_batch()
+    # the batched paths of K1 (mode='device') and K2 (both batched modes),
+    # and each one's device time in one mode='device' call (profiler)
     batched = {
         "bid_topk": dict(batched_launches=dev_launches["bid_topk_batched"],
+                         batched_device_mode_ms=prof["k1_ms"],
                          **{f"batched_{k}": v for k, v in k1b.items()}),
         "commit": dict(batched_launches={
             "hybrid": hy_launches["commit"],
-            "device": dev_launches["commit"]}),
+            "device": dev_launches["commit"]},
+            batched_device_mode_ms=prof["k2_ms"],
+            **{f"batched_{k}": v for k, v in k2b.items()}),
     }
     kernels = []
     for name in ("bid_topk", "commit"):
         kernels.append(dict(
             name=name, **KERNELS[name], launches=launches[name],
             max_abs_err=errs[name], ms=times[name],
+            ms_device=times[name + "_device"],
             plain_ms=times[name + "_plain"], **times["bounds"][name],
-            library_ms=times["library"][name], **batched[name]))
+            library_ms=times["library"][name], **times["limiters"][name],
+            **batched[name]))
     name = "gs_auction_device"
     kernels.append(dict(
         name=name, **KERNELS[name], launches=launches[name],
@@ -1629,5 +1877,47 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def k12(label: str) -> None:
+    """--k12 LABEL: the K1 and K2 measurements of phases 3 and 10 alone,
+    each kernel checked against its plain version on the way, printed as
+    one line "K12 LABEL {...}" (ms unrounded)."""
+    phase_device()
+    phase_build()
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(0)
+    st = _inputs(rng, N_HEAD, N_HEAD, K_HEAD, np.float32, dev)
+    ids = _ids(rng, st, N_HEAD, dev)
+    keys = torch.zeros(N_HEAD, dtype=torch.int64, device=dev)
+    _, t, _, _ = _check_pair(st, ids, True, 20, keys)
+    k1, k2, lib_ms = _k12_bounds(st, ids, 20)
+    lim = _limiters(st, ids, 20, keys)
+    out = {"tree": os.path.dirname(os.path.abspath(__file__)),
+           "bid_topk": dict(ms=t["bid_topk"], ms_device=t["bid_topk_device"],
+                            **k1, **lim["bid_topk"]),
+           "commit": dict(ms=t["commit"], ms_device=t["commit_device"],
+                          library_ms=lib_ms, **k2, **lim["commit"])}
+    del st, ids, keys
+    batch = config3_batch()
+    out["bid_topk_batched"] = _batched_k1_check(batch, dev)
+    out["commit_chunk"] = _batched_k2_check(batch, dev)
+    out["hybrid_chunk_profile"] = _profile_chunk(batch, dev)
+    sub = ELLProblem(cols=batch.cols[:CHUNK3], vals=batch.vals[:CHUNK3],
+                     valid=batch.valid[:CHUNK3],
+                     nvalid=batch.nvalid[:CHUNK3], n=N3, m=N3)
+    del batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metas = auction_solve_batched(sub, mode="device", device=DEVICE)
+    out["device_mode_s"] = time.perf_counter() - t0
+    its = [mt["its"] for mt in metas]
+    out["device_mode_rounds"] = [max(its), float(np.mean(its))]
+    out["device_mode_objs"] = [mt["obj"] for mt in metas]
+    out["device_mode_profile"] = _profile_device_chunk(sub)
+    print("K12", label, json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--k12":
+        k12(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    else:
+        main()

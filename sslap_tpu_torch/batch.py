@@ -14,13 +14,13 @@ the batch; ``batch_from_dense`` builds one from a [B, n, m] stack).
   'hybrid'  the dense-chunk engine with native GS tails
             (``dense_batch.solve_batched_dense_hybrid``);
   'cpu'     the native Gauss-Seidel solve per instance;
-  'auto'    'cpu' for float64 / exact-large-integer batches, and for
-            ``device="cpu"`` when the native runtime is there; else
-            'hybrid' on a CUDA device where the dense engine takes the
-            batch and no warm prices are given, else 'device'.  (The
-            reference's 'auto' is 'cpu' whenever the native runtime is
-            there: its vmapped device path lost to the host.  On the H100
-            the dense hybrid beats 'cpu' on config 3, see PERF.md.)
+  'auto'    'hybrid' on a CUDA device for a square batch that the dense
+            engine takes and that brings no warm prices; else 'cpu'
+            wherever the reference picks it (the native runtime is there,
+            or the costs need host precision, and no mesh is given); else
+            'device'.  The one departure from the reference's 'auto' is
+            the dense hybrid, which beats 'cpu' on config 3 on the H100;
+            'device' is the slowest arm there (PERF.md).
 
 Batches sharded over a mesh (``mesh=``) are not ported yet.
 """
@@ -161,18 +161,19 @@ def solve_ell_batched(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
 
 def _auto_mode(prob: ELLProblem, needs_host_precision: bool, mesh, device,
                warm: bool) -> str:
-    """'auto''s pick (see the module note); never 'hybrid' for a
-    warm-started batch, whose prices the dense engine cannot take."""
+    """'auto''s pick (see the module note): the reference's pick
+    (``sslap_tpu/batch.py:127-135``), except that a square, cold batch
+    that the dense engine takes runs the dense hybrid on a CUDA device
+    (never a warm-started one, whose prices the engine cannot take)."""
     from sslap_tpu_torch import hybrid as _hybrid
     if mesh is not None:
         return "device"
-    if needs_host_precision or (torch.device(device).type == "cpu"
-                                and _hybrid.native_available()):
-        return "cpu"
     if torch.device(device).type == "cuda" and not warm:
         from sslap_tpu_torch import dense_batch as _db
         if _db.dense_hybrid_available(prob):
             return "hybrid"
+    if needs_host_precision or _hybrid.native_available():
+        return "cpu"
     return "device"
 
 

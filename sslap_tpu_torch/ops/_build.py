@@ -48,21 +48,23 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    c_int = ctypes.c_int
     for suffix, scalar in (("f32", ctypes.c_float), ("i32", ctypes.c_int32)):
         fn = getattr(lib, f"sslap_bid_{suffix}")
         fn.restype = ctypes.c_int
         # ids, C, cols, vals_m, nvalid, prices, sigma, owner, n, m, K,
-        # eps, bigp, neg, half_neg, phase_start, tgt, bid, stream
+        # eps, bigp, neg, half_neg, phase_start, lanes, vec, tgt, bid,
+        # stream
         fn.argtypes = [p, i64, p, p, p, p, p, p, i32, i32, i32,
-                       scalar, scalar, scalar, scalar, ctypes.c_int,
+                       scalar, scalar, scalar, scalar, c_int, c_int, c_int,
                        p, p, p]
         fn = getattr(lib, f"sslap_bid_batched_{suffix}")
         fn.restype = ctypes.c_int
         # ids, C, cols, vals_m, nvalid, prices, sigma, owner, n, m, K,
-        # eps_of, bigp_of, rows_per, neg, half_neg, phase_start, tgt, bid,
-        # stream
+        # eps_of, bigp_of, rows_per, neg, half_neg, phase_start, lanes,
+        # vec, tgt, bid, stream
         fn.argtypes = [p, i64, p, p, p, p, p, p, i32, i32, i32, p, p, i32,
-                       scalar, scalar, ctypes.c_int, p, p, p]
+                       scalar, scalar, c_int, c_int, c_int, p, p, p]
         fn = getattr(lib, f"sslap_dense_bid_{suffix}")
         fn.restype = ctypes.c_int
         # ids, C, A, nvalid, prices, sigma, eps_of, bigp, neg, n, m, rows,
@@ -89,7 +91,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sslap_gs_f32.restype = ctypes.c_int
     # cols, vals, K, queue, cap, qcount, prices, owner, eps, bigp, neg,
     # half, real_min, max_bids, prefetch, scan, stats, stream
-    f32, c_int = ctypes.c_float, ctypes.c_int
+    f32 = ctypes.c_float
     lib.sslap_gs_f32.argtypes = [p, p, i32, p, i64, i64, p, p, f32, f32, f32,
                                  f32, f32, i64, c_int, c_int, p, p]
     # P1-P3: src, row, off, scratch_rows, out, stream

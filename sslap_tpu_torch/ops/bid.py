@@ -6,9 +6,10 @@ rows: price gather by window-row load and one-hot lane select, top-2,
 bid).  The TPU kernel could only serve the full-width Jacobi round
 (``sslap_tpu/ops/__init__.py:26-37``); here the kernel takes the compacted
 id list of ``compact_round``, so one kernel serves phase starts, the wide
-loop and every ladder round.  The kernel is ``csrc/bid.cu`` (what bounds
-it on the card, and what its design does about that, is noted there);
-``bid_topk_plain`` is the same function as torch ops.
+loop and every ladder round.  The kernel is ``csrc/bid.cu``: a group of G
+lanes of a warp shares each row (``row_group`` picks G from K); what
+bounds it on the card, and what its design does about that, is noted
+there.  ``bid_topk_plain`` is the same function as torch ops.
 
 ``bid_topk_batched`` is the batched entry of the same kernel (the
 batched Jacobi solve, ``batch.py``): ids, columns and tables are a batch's,
@@ -26,12 +27,29 @@ from sslap_tpu_torch.auction import half_neg, neg_sentinel
 from sslap_tpu_torch.ops import _build
 
 
+LANE_SLOTS = 8       # slots a lane takes per step (csrc/round.cuh)
+
+
 def _scalar(x, dtype: torch.dtype):
     """A Python scalar in ``dtype``'s kind; a tensor (per-row values of the
     plain twin) passes through."""
     if isinstance(x, torch.Tensor):
         return x
     return float(x) if dtype.is_floating_point else int(x)
+
+
+def row_group(K: int, cols, vals_m):
+    """The kernel's row group for rows of K slots: (G, V), G lanes of a
+    warp on each row (the least power of two with 8 G >= K, at most 32:
+    each lane takes up to 8 slots a step, so a warp bids on 32 / G rows at
+    once) and V slots a load (4: one 16-byte load, when K % 4 == 0 and both
+    row tables are 16-byte aligned; else 1)."""
+    lanes = 1
+    while lanes < 32 and LANE_SLOTS * lanes < K:
+        lanes *= 2
+    vec = 4 if K % 4 == 0 and cols.data_ptr() % 16 == 0 and \
+        vals_m.data_ptr() % 16 == 0 else 1
+    return lanes, vec
 
 
 def bid_topk_plain(ids, cols, vals_m, nvalid, prices, sigma, owner, eps,
@@ -105,6 +123,7 @@ def bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner, eps, bigp,
     if vals_m.shape != (n, K) or nvalid.shape != (n,) or \
             sigma.shape != (n,) or owner.shape != (m,):
         raise ValueError("bid_topk: inconsistent shapes")
+    G, V = row_group(K, cols, vals_m)
     lib = _build.load()
     tgt = torch.empty(C, dtype=torch.int32, device=ids.device)
     bid = torch.empty(C, dtype=dtype, device=ids.device)
@@ -113,7 +132,7 @@ def bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner, eps, bigp,
              nvalid.data_ptr(), prices.data_ptr(), sigma.data_ptr(),
              owner.data_ptr(), n, m, K, _scalar(eps, dtype),
              _scalar(bigp, dtype), neg_sentinel(dtype), half_neg(dtype),
-             int(phase_start), tgt.data_ptr(), bid.data_ptr(),
+             int(phase_start), G, V, tgt.data_ptr(), bid.data_ptr(),
              torch.cuda.current_stream(ids.device).cuda_stream)
     _build.check(err, "bid_topk")
     bid_topk.launches += 1
@@ -168,6 +187,7 @@ def bid_topk_batched(ids, cols, vals_m, nvalid, prices, sigma, owner,
             sigma.shape != (n,) or owner.shape != (m,) or \
             bigp_of.shape != (B,) or n != B * rows_per or m % B:
         raise ValueError("bid_topk_batched: inconsistent shapes")
+    G, V = row_group(K, cols, vals_m)
     lib = _build.load()
     tgt = torch.empty(C, dtype=torch.int32, device=ids.device)
     bid = torch.empty(C, dtype=dtype, device=ids.device)
@@ -177,7 +197,7 @@ def bid_topk_batched(ids, cols, vals_m, nvalid, prices, sigma, owner,
              nvalid.data_ptr(), prices.data_ptr(), sigma.data_ptr(),
              owner.data_ptr(), n, m, K, eps_of.data_ptr(), bigp_of.data_ptr(),
              rows_per, neg_sentinel(dtype), half_neg(dtype), int(phase_start),
-             tgt.data_ptr(), bid.data_ptr(),
+             G, V, tgt.data_ptr(), bid.data_ptr(),
              torch.cuda.current_stream(ids.device).cuda_stream)
     _build.check(err, "bid_topk_batched")
     bid_topk_batched.launches += 1

@@ -5,10 +5,11 @@ max-scatter of bids into per-column (best, winner), contract
 ``auction.resolve_bids``) and also applies the commit of
 ``sslap_tpu/compact.py::compact_round``: the winner's bid becomes the
 column's price, the winner its owner, and the previous owner is evicted.
-The kernel is ``csrc/commit.cu`` (one 64-bit atomicMax per bidder on an
-order-preserving (bid, row) key, then a commit pass; its note says what
-bounds it on the card).  ``commit_plain`` is the same function as torch
-ops around ``auction.resolve_bids`` (scatter-reduce amax, then amin).
+The kernel is ``csrc/commit.cu``: two launches, a resolve (one 64-bit
+atomicMax on an order-preserving (bid, row) key per column a warp
+touches), then a commit; its note says what bounds it on the card.
+``commit_plain`` is the same function as torch ops around
+``auction.resolve_bids`` (scatter-reduce amax, then amin).
 
 ``commit`` dispatches by device: a CPU tensor goes to the twin, a CUDA
 tensor launches the kernel (or raises), and nothing falls back.

@@ -9,86 +9,131 @@
 // The TPU kernel walks the bids in order on one core.  Blocks here run in
 // no order, so the tie-break is carried by the key instead of the order:
 // round.cuh's bid_key, (order-preserving uint32 of the bid) << 32 |
-// (0xFFFFFFFF - row).  One 64-bit atomicMax per bidder on keys[tgt] (pass
-// 1) then leaves, per column, the highest bid with the LOWEST row among
-// equal bids.
+// (0xFFFFFFFF - row).  The highest key per column is the highest bid with
+// the LOWEST row among equal bids.
 //
-// Pass 2: each bidder runs round.cuh's commit_bid: the one whose key
-// survived is its column's unique winner and commits (price, owner,
-// sigma, the evictee's sigma) and resets keys[tgt] to 0, so the [m] key
-// table is all zero again after every round with no [m] memset.  The
-// eps-phase ladder (ladder.cu) runs the same two steps in its stages A and
-// B; this standalone pair serves auction.jacobi_round.  Outputs: stay
-// (losers, else n), evicted (previous owners, else n), counts = (won,
-// evicted, stayed), block-reduced in shared memory before one global
-// atomic per block.
+// Two launches, one thread a bid:
+//   resolve  thread 0 zeroes counts (the commit launch adds to them
+//            after it).  Each warp groups its bids by column
+//            (__match_any_sync on tgt) and takes each group's highest key
+//            by shuffles; that lane alone makes the atomicMax on keys[tgt],
+//            one per column the warp touches.  A warp with no bid (tgt == m
+//            on every lane) loads nothing more.
+//   commit   each bidder runs round.cuh's commit_bid: the one whose key
+//            survived is its column's unique winner and commits (price,
+//            owner, sigma, the evictee's sigma) and resets keys[tgt] to 0,
+//            so the [m] key table is all zero again after the round.
+//            counts = (won, evicted, stayed): each warp sums them with
+//            __reduce_add_sync, each block adds them once.
+// Outputs: stay (losers, else n), evicted (previous owners, else n).  The
+// eps-phase ladder (ladder.cu) runs round.cuh's bid_key and commit_bid in
+// its stages A and B; this standalone pair serves auction.jacobi_round,
+// the batched Jacobi solve and the dense engine.  One cooperative launch
+// with a grid barrier between the passes was tried and lost: 6.5 us a
+// launch with no bidder against 4.7 us for the two, and the batched
+// mode='device' solve launches K2 on mostly dead id lists (PERF.md).
 //
-// Bound on an H100: C random 8-byte atomics and a handful of random 4-byte
-// accesses per bidder into [m] tables that stay resident in L2 (keys 8 MB,
-// prices/owner 4 MB each at m = 1M); on narrow ladder tiers the two
-// launches' latency dominates.
+// Bound on an H100: per bidder 12 bytes of (id, tgt, bid) in and 8 of
+// (stay, evicted) out, and per column won a few random 4-8 byte accesses
+// to [m] tables that stay in the 50 MB L2.  The first version made one
+// atomicMax per bidder, so bidders on one column serialised at L2 (the
+// dense engine's and early rounds' popular columns); the random L2
+// atomics and commit accesses, each a 32-byte sector, remain the limit.
 #include "round.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void resolve_kernel(const int32_t* __restrict__ ids,
-                               const int32_t* __restrict__ tgt,
-                               const T* __restrict__ bid, int64_t C,
-                               int32_t m, unsigned long long* keys,
-                               int32_t* counts) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (i == 0) {
-    counts[0] = 0;
-    counts[1] = 0;
-    counts[2] = 0;
+// The highest v over the lanes of the warp that bid (has) on the same
+// column (label) as this lane; v itself for a lane that does not bid.
+// Every lane of the warp calls it; it costs one shuffle per lane of the
+// largest group.
+__device__ __forceinline__ unsigned long long warp_max_by_label(
+    bool has, int32_t label, unsigned long long v) {
+  const int lane = threadIdx.x & 31;
+  // a lane without a bid is a group of its own (columns are >= 0)
+  const unsigned peers =
+      __match_any_sync(sslap::kFullMask, has ? label : -1 - lane);
+  const int rounds = static_cast<int>(
+      __reduce_max_sync(sslap::kFullMask, __popc(peers)));
+  if (rounds == 1) return v;   // no two bids of the warp share a column
+  unsigned rest = peers;
+  unsigned long long best = v;
+  for (int t = 0; t < rounds; ++t) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1;
+    const unsigned long long o = __shfl_sync(sslap::kFullMask, v, src);
+    best = o > best ? o : best;
   }
-  if (i >= C) return;
-  const int32_t j = tgt[i];
-  if (j >= m) return;
-  atomicMax(&keys[j], sslap::bid_key(bid[i], ids[i]));
+  return best;
 }
 
 template <typename T>
-__global__ void commit_kernel(const int32_t* __restrict__ ids,
-                              const int32_t* __restrict__ tgt,
-                              const T* __restrict__ bid, int64_t C,
-                              int32_t n, int32_t m, unsigned long long* keys,
-                              T* prices, int32_t* owner, int32_t* sigma,
-                              int32_t* __restrict__ stay,
-                              int32_t* __restrict__ evicted,
-                              int32_t* counts) {
-  __shared__ int block_counts[3];
-  if (threadIdx.x < 3) block_counts[threadIdx.x] = 0;
+__global__ void __launch_bounds__(sslap::kBlock)
+    resolve_kernel(const int32_t* __restrict__ ids,
+                   const int32_t* __restrict__ tgt,
+                   const T* __restrict__ bid, int64_t C, int32_t m,
+                   unsigned long long* keys, int32_t* counts) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i < 3) counts[i] = 0;
+  // i - lane is the warp's first slot: the exit is warp-uniform
+  if (i - (threadIdx.x & 31) >= C) return;
+  const int32_t j = i < C ? __ldg(tgt + i) : m;
+  const bool has = j < m;
+  if (__ballot_sync(sslap::kFullMask, has) == 0) return;
+  const unsigned long long key =
+      has ? sslap::bid_key(__ldg(bid + i), __ldg(ids + i)) : 0ull;
+  // every lane takes part in the shuffles, bidder or not
+  if (has && key == warp_max_by_label(has, j, key))
+    atomicMax(keys + j, key);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(sslap::kBlock)
+    commit_kernel(const int32_t* __restrict__ ids,
+                  const int32_t* __restrict__ tgt,
+                  const T* __restrict__ bid, int64_t C, int32_t n, int32_t m,
+                  unsigned long long* keys, T* prices, int32_t* owner,
+                  int32_t* sigma, int32_t* __restrict__ stay,
+                  int32_t* __restrict__ evicted, int32_t* counts) {
+  __shared__ int s_counts[3];
+  if (threadIdx.x < 3) s_counts[threadIdx.x] = 0;
   __syncthreads();
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
+  int won = 0, ev = 0, stayed = 0;
   if (i < C) {
-    const int32_t id = ids[i];
-    const int32_t j = tgt[i];
+    const int32_t j = __ldg(tgt + i);
     int32_t s = n, e = n;
     if (j < m) {
-      bool won;
-      const int32_t r = sslap::commit_bid(id, j, bid[i], keys, prices, owner,
-                                          sigma, &won);
-      if (won) {
-        atomicAdd(&block_counts[0], 1);
+      bool w;
+      const int32_t r = sslap::commit_bid(__ldg(ids + i), j, __ldg(bid + i),
+                                          keys, prices, owner, sigma, &w);
+      if (w) {
+        won = 1;
         if (r >= 0) {
           e = r;
-          atomicAdd(&block_counts[1], 1);
+          ev = 1;
         }
       } else {
         s = r;
-        atomicAdd(&block_counts[2], 1);
+        stayed = 1;
       }
     }
     stay[i] = s;
     evicted[i] = e;
   }
+  won = __reduce_add_sync(sslap::kFullMask, won);
+  ev = __reduce_add_sync(sslap::kFullMask, ev);
+  stayed = __reduce_add_sync(sslap::kFullMask, stayed);
+  if ((threadIdx.x & 31) == 0) {
+    if (won) atomicAdd(&s_counts[0], won);
+    if (ev) atomicAdd(&s_counts[1], ev);
+    if (stayed) atomicAdd(&s_counts[2], stayed);
+  }
   __syncthreads();
-  if (threadIdx.x < 3 && block_counts[threadIdx.x] != 0)
-    atomicAdd(&counts[threadIdx.x], block_counts[threadIdx.x]);
+  if (threadIdx.x < 3 && s_counts[threadIdx.x] != 0)
+    atomicAdd(&counts[threadIdx.x], s_counts[threadIdx.x]);
 }
 
 template <typename T>

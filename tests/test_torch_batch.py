@@ -191,15 +191,16 @@ def test_hybrid_mode_matches_reference(integer):
 
 def test_auto_mode_routes_to_the_card(monkeypatch):
     """'auto' on a CUDA device takes the dense hybrid where it applies
-    (not for warm prices), else 'device'; 'cpu' only for float64 /
-    int_exact batches, or device='cpu' with the native runtime."""
+    (square, no warm prices); everywhere else it picks what the
+    reference's 'auto' picks: 'cpu' with the native runtime or for float64
+    / int_exact batches, 'device' with a mesh."""
     _, sq = _batch(12, 2, 20, 20, True)
     _, rect = _batch(11, 2, 20, 24, True)
     f64 = PB.batch_from_dense(np.ones((2, 3, 3)), dtype=np.float64)
     pick = PB._auto_mode
     assert pick(sq, False, None, "cuda", False) == "hybrid"
-    assert pick(sq, False, None, "cuda:0", True) == "device"
-    assert pick(rect, False, None, "cuda", False) == "device"
+    assert pick(sq, False, None, "cuda:0", True) == "cpu"
+    assert pick(rect, False, None, "cuda", False) == "cpu"
     assert pick(f64, True, None, "cuda", False) == "cpu"
     assert pick(sq, False, None, "cpu", False) == "cpu"
     assert pick(sq, False, object(), "cuda", False) == "device"
@@ -216,6 +217,50 @@ def test_auto_mode_routes_to_the_card(monkeypatch):
     # a float64 batch is solved on the host whatever the device
     _, metas = PB.auction_solve_batched(f64)
     assert all(mt["soln_found"] and "host_bids" in mt for mt in metas)
+
+
+def test_auto_mode_takes_the_cpu_solver_where_the_reference_does(
+        monkeypatch):
+    """The default call sends a warm-started batch and a rectangular batch
+    on device="cuda" to the native 'cpu' solver, as the reference's 'auto'
+    does; the warm-started call returns the reference's sols, per-instance
+    prices and metas (``mode`` and ``host_bids`` included), on either
+    device."""
+    from sslap_tpu import hybrid as RH
+    from sslap_tpu_torch import hybrid as PH
+    B, n = 3, 30
+    r, p = _batch(13, B, n, n, True)
+    wp = (np.random.default_rng(14).random((B, n)) * 50).astype(
+        np.asarray(r.vals).dtype)
+    seen, got_prices, ref_prices = [], [], []
+
+    def spy(solve, prices):
+        def run(sub, **kw):
+            seen.append(kw["mode"])
+            out = solve(sub, **kw)
+            prices.append(out[1])
+            return out
+        return run
+
+    monkeypatch.setattr(RH, "solve_hybrid", spy(RH.solve_hybrid, ref_prices))
+    monkeypatch.setattr(PH, "solve_hybrid", spy(PH.solve_hybrid, got_prices))
+    rs, rm = RB.auction_solve_batched(r, warm_prices=wp)
+    assert seen == ["cpu"] * B
+    for device in ("cuda", "cpu"):
+        seen.clear()
+        got_prices.clear()
+        ps, pm = PB.auction_solve_batched(p, warm_prices=wp, device=device)
+        assert seen == ["cpu"] * B
+        np.testing.assert_array_equal(ps, rs)
+        _same_metas(rm, pm)
+        assert all("mode" in mt and "host_bids" in mt and mt["soln_found"]
+                   for mt in pm)
+        for a, b in zip(got_prices, ref_prices):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    _, rect = _batch(11, 2, 20, 24, True)
+    seen.clear()
+    _, metas = PB.auction_solve_batched(rect, device="cuda")
+    assert seen == ["cpu"] * 2 and all("host_bids" in mt for mt in metas)
 
 
 def test_routing_errors_match_reference():

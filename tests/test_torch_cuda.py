@@ -32,6 +32,7 @@ from sslap_tpu_torch.ops import bid_topk, bid_topk_batched, \
     bid_topk_batched_plain, bid_topk_plain, commit, commit_plain, dense_bid, \
     dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase
 from sslap_tpu_torch.ops import probe_gs as PG
+from sslap_tpu_torch.ops import bid as PBid
 
 pytestmark = pytest.mark.cuda
 
@@ -80,59 +81,121 @@ def _state(rng, n, K, dtype, dev):
                 owner=t(owner), eps=eps, bigp=bigp)
 
 
+def _unaligned(t):
+    """A copy of t whose data starts 4 bytes past a 16-byte boundary: K1
+    then takes 4-byte loads whatever K is."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+ROW_GROUPS = (1, 2, 4, 8, 16, 32)     # the row groups csrc/bid.cu takes
+
+
+def _row_groups(monkeypatch, K, cols, vals_m):
+    """Every (cols, vals_m) K1 can run, each under every row group: the
+    one K1 picks from K, then each of ROW_GROUPS forced through
+    ops.bid.row_group; with 16-byte row loads where K % 4 == 0 and with
+    4-byte loads from unaligned copies."""
+    tables = [(cols, vals_m)]
+    if K % 4 == 0:
+        tables.append((_unaligned(cols), _unaligned(vals_m)))
+    pick = PBid.row_group
+    for c, v in tables:
+        monkeypatch.setattr(PBid, "row_group", pick)
+        yield c, v
+        for G in ROW_GROUPS:
+            monkeypatch.setattr(PBid, "row_group", lambda K, cols, vals_m,
+                                G=G: (G, pick(K, cols, vals_m)[1]))
+            yield c, v
+    monkeypatch.setattr(PBid, "row_group", pick)
+
+
+K_GRID = [1, 2, 3, 5, 10, 17, 52, 64]
+
+
+@pytest.mark.parametrize("K", K_GRID)
 @pytest.mark.parametrize("phase_start", [False, True])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
-def test_kernels_match_twins(dev, dtype, phase_start):
-    rng = np.random.default_rng(11)
-    n, K = 5000, 10
+def test_kernels_match_twins(dev, monkeypatch, dtype, phase_start, K):
+    """K1 then K2 against their plain versions on one round, for every row
+    group K1 can run at this K; the id list is shuffled, with dead slots
+    (id = n) among the live ones."""
+    rng = np.random.default_rng(11 + K)
+    n = 5000
     st = _state(rng, n, K, dtype, dev)
     sig, nv = st["sigma"].cpu().numpy(), st["nvalid"].cpu().numpy()
     if phase_start:
         live = np.flatnonzero(((sig < 0) & (nv > 0)) | (sig >= 0))
     else:
         live = np.flatnonzero((sig < 0) & (nv > 0))[:3000]
-    ids = np.full(4096 if not phase_start else n, n, np.int32)
+    ids = np.full(live.shape[0] + 600, n, np.int32)
     ids[:live.shape[0]] = live
-    ids = torch.from_numpy(ids).to(dev)
-    outs = []
-    for k1, k2 in ((bid_topk, commit), (bid_topk_plain, commit_plain)):
+    ids = torch.from_numpy(rng.permutation(ids)).to(dev)
+
+    def run(k1, k2, cols, vals_m):
         prices, sigma, owner = (st[k].clone() for k in
                                 ("prices", "sigma", "owner"))
-        tgt, bid = k1(ids, st["cols"], st["vals_m"], st["nvalid"], prices,
-                      sigma, owner, st["eps"], st["bigp"],
-                      phase_start=phase_start)
+        tgt, bid = k1(ids, cols, vals_m, st["nvalid"], prices, sigma, owner,
+                      st["eps"], st["bigp"], phase_start=phase_start)
         stay, evicted, counts = k2(ids, tgt, bid, prices, owner, sigma)
-        outs.append((tgt, bid, prices, sigma, owner, stay, evicted, counts))
-    torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        np.testing.assert_array_equal(_bits(a), _bits(b))
-    assert int(outs[0][7][0]) > 0
+        return tgt, bid, prices, sigma, owner, stay, evicted, counts
+
+    want = run(bid_topk_plain, commit_plain, st["cols"], st["vals_m"])
+    for cols, vals_m in _row_groups(monkeypatch, K, st["cols"],
+                                    st["vals_m"]):
+        got = run(bid_topk, commit, cols, vals_m)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(want[7][0]) > 0
 
 
+@pytest.mark.parametrize("case", [
+    dict(n=5000, C=2000, ncols=40),                 # a few columns
+    dict(n=300_000, C=131_072, ncols=1),            # every bid on one
+    dict(n=300_000, C=131_072, ncols=8),
+    dict(n=300_000, C=131_072, ncols=8, equal=True),
+    dict(n=300_000, C=131_072, ncols=None),         # any column
+])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
-def test_commit_kernel_matches_twin_on_ties(dev, dtype):
-    """Equal, +-0.0 and negative bids onto a few columns, some owned."""
+def test_commit_kernel_matches_twin_on_ties(dev, dtype, case):
+    """Equal, +-0.0 and negative bids onto a few columns, some owned; heavy
+    contention at C = 131,072 (all bids on 1 or 8 columns; all bids equal,
+    so the lowest row wins); ids in any order, 10% without a bid.  Outputs,
+    counts and tables equal the plain version's, and keys is all zero
+    again."""
     rng = np.random.default_rng(12)
-    n = 5000
+    n, C = case["n"], case["C"]
     st = _state(rng, n, 10, dtype, dev)
     sig = st["sigma"].cpu().numpy()
-    ids = np.sort(rng.choice(np.flatnonzero(sig < 0), 2000, replace=False))
-    owned = np.flatnonzero(st["owner"].cpu().numpy() >= 0)[:20]
-    cols = np.concatenate([owned, rng.choice(n, 20, replace=False)])
-    tgt = rng.choice(cols, ids.shape[0]).astype(np.int32)
-    tgt[rng.random(ids.shape[0]) < 0.1] = n
+    ids = rng.choice(np.flatnonzero(sig < 0), C, replace=False)
+    if case["ncols"] is None:
+        cols = np.arange(n)
+    else:
+        owned = np.flatnonzero(st["owner"].cpu().numpy() >= 0)
+        half = case["ncols"] // 2
+        cols = np.concatenate([owned[:half], rng.choice(
+            n, case["ncols"] - half, replace=False)])
+    tgt = rng.choice(cols, C).astype(np.int32)
+    tgt[rng.random(C) < 0.1] = n
     choices = (np.array([-1.5, -0.0, 0.0, 2.0], np.float32)
                if dtype == np.float32 else np.array([-3, 0, 5], np.int32))
-    bid = rng.choice(choices, ids.shape[0])
+    bid = rng.choice(choices[-1:] if case.get("equal") else choices, C)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     ids, tgt, bid = t(ids.astype(np.int32)), t(tgt), t(bid)
+    keys = torch.zeros(n, dtype=torch.int64, device=dev)
     outs = []
-    for fn in (commit, commit_plain):
+    for fn, kw in ((commit, dict(keys=keys)), (commit_plain, {})):
         state = [st[k].clone() for k in ("prices", "owner", "sigma")]
-        outs.append(list(fn(ids, tgt, bid, *state)) + state)
+        outs.append(list(fn(ids, tgt, bid, *state, **kw)) + state)
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(keys.count_nonzero()) == 0
+    assert int(outs[0][2][0]) == int(torch.unique(tgt[tgt < n]).numel())
 
 
 def _instance(n, seed=16, k=8):
@@ -491,13 +554,16 @@ def test_dense_bid_kernel_matches_plain(dev, dtype, m):
         assert int((got[0] < B * m).sum()) > 0
 
 
+@pytest.mark.parametrize("K", K_GRID)
 @pytest.mark.parametrize("phase_start", [False, True])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
-def test_batched_bid_kernel_matches_plain(dev, dtype, phase_start):
+def test_batched_bid_kernel_matches_plain(dev, monkeypatch, dtype, phase_start,
+                                          K):
     """K1's batched entry over three instances flattened (rows b n + r,
-    columns b m + c), each with its own eps and bigp."""
-    rng = np.random.default_rng(41)
-    B, n, K = 3, 2000, 10
+    columns b m + c), each with its own eps and bigp, for every row group
+    it can run at this K; shuffled ids with dead slots among them."""
+    rng = np.random.default_rng(41 + K)
+    B, n = 3, 2000
     parts = [_state(rng, n, K, dtype, dev) for _ in range(B)]
     cat = lambda k: torch.cat([p_[k] for p_ in parts])  # noqa: E731
     off = lambda b: b * n  # noqa: E731
@@ -515,18 +581,22 @@ def test_batched_bid_kernel_matches_plain(dev, dtype, phase_start):
     nv = cat("nvalid").cpu().numpy()
     live = np.flatnonzero(((sig < 0) & (nv > 0))
                           | (phase_start & (sig >= 0)))
-    ids = torch.full((B * n,), B * n, dtype=torch.int32, device=dev)
-    ids[:live.shape[0]] = torch.from_numpy(live.astype(np.int32)).to(dev)
-    outs = []
-    for fn in (bid_topk_batched, bid_topk_batched_plain):
+    ids = np.full(B * n, B * n, np.int32)
+    ids[:live.shape[0]] = live
+    ids = torch.from_numpy(rng.permutation(ids)).to(dev)
+
+    def run(fn, vals_m, cols):
         s_, o_ = sigma.clone(), owner.clone()
-        tgt, bid = fn(ids, cols, cat("vals_m"), cat("nvalid"),
-                      cat("prices"), s_, o_, eps, bigp, n,
-                      phase_start=phase_start)
-        outs.append((tgt, bid, s_, o_))
-    torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        np.testing.assert_array_equal(_bits(a), _bits(b))
+        tgt, bid = fn(ids, cols, vals_m, cat("nvalid"), cat("prices"), s_,
+                      o_, eps, bigp, n, phase_start=phase_start)
+        return tgt, bid, s_, o_
+
+    want = run(bid_topk_batched_plain, cat("vals_m"), cols)
+    for c, v in _row_groups(monkeypatch, K, cols, cat("vals_m")):
+        got = run(bid_topk_batched, v, c)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
 
 
 def _batched_instances(B, n, seed, integer, k=12):
@@ -569,6 +639,25 @@ def test_batched_device_mode_on_cuda_matches_cpu(dev, integer):
            for d in (dev, torch.device("cpu"))]
     np.testing.assert_array_equal(_bits(res[0].prices), _bits(res[1].prices))
     np.testing.assert_array_equal(res[0].sigma.cpu(), res[1].sigma)
+
+
+def test_batched_auto_with_warm_prices_takes_cpu_on_cuda(dev):
+    """The default mode on the card sends a warm-started batch to the
+    native 'cpu' solver, as the reference's 'auto' does: no kernel runs,
+    the metas are the 'cpu' path's and equal the CPU call's."""
+    prob = _batched_instances(4, 256, 45, True)
+    wp = (np.random.default_rng(46).random((4, 256)) * 50).astype(
+        prob.vals.dtype)
+    bid_topk_batched.launches = commit.launches = dense_bid.launches = 0
+    g = PB.auction_solve_batched(prob, warm_prices=wp, device="cuda")
+    assert bid_topk_batched.launches == commit.launches == \
+        dense_bid.launches == 0
+    c = PB.auction_solve_batched(prob, warm_prices=wp, device="cpu")
+    np.testing.assert_array_equal(g[0], c[0])
+    for a, b in zip(g[1], c[1]):
+        assert a["mode"] == "cpu" and "host_bids" in a
+        assert {k: v for k, v in a.items() if k != "time"} == \
+            {k: v for k, v in b.items() if k != "time"}
 
 
 @pytest.mark.parametrize("integer", [True, False])

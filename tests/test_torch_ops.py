@@ -2,7 +2,9 @@
 Pallas kernels (interpret mode) and its XLA oracles, on the CPU.
 
 K1 (``bid_topk``) is held against ``ops.bid.bid_topk_pallas`` and
-``auction.compute_bids``; K2 (``commit``) against
+``auction.compute_bids``, and a numpy mirror of its CUDA kernel's row
+group (lanes of a warp splitting a row, merged by shuffles) against its
+plain version; K2 (``commit``) against
 ``ops.commit.commit_scatter_pallas`` and ``auction.resolve_bids``.
 Tolerance: exact -- targets and winners equal, bids and prices bit for bit.
 The kernels themselves run only on a CUDA device (test_torch_cuda.py).
@@ -18,11 +20,13 @@ from sslap_tpu import auction as RA
 from sslap_tpu.ops.bid import bid_topk_pallas
 from sslap_tpu.ops.commit import commit_scatter_pallas
 from sslap_tpu_torch import auction as PA
-from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_plain, commit, \
-    commit_plain
+from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched_plain, \
+    bid_topk_plain, commit, commit_plain
+from sslap_tpu_torch.ops.bid import LANE_SLOTS, row_group
 from sslap_tpu_torch.ops.commit import bid_key_decode_np, bid_key_np
 
 I32_MAX = 2 ** 31 - 1
+ROW_GROUPS = (1, 2, 4, 8, 16, 32)     # the row groups csrc/bid.cu takes
 
 
 def _bits(a):
@@ -166,6 +170,169 @@ def test_bid_twin_phase_start_frees_violators(dtype):
     bidding = tgt.numpy() < m
     np.testing.assert_array_equal(_bits(bid.numpy())[bidding],
                                   _bits(b_ref)[bidding])
+
+
+def _lane_split_bids(ids, cols, vals_m, nvalid, prices, sigma, owner, eps,
+                     bigp, G, V, phase_start, rows_per=None):
+    """numpy mirror of csrc/bid.cu's row group (round.cuh: bid_lanes, then
+    bid_finish): G lanes a row, lane g taking LANE_SLOTS slots a step, as
+    units of V (unit g + q G: slots k0 + V (g + q G) + 0 .. V - 1), then
+    the __shfl_xor_sync butterfly
+    merge, simulated lane by lane in the dtype's own scalar arithmetic.
+    eps and bigp are scalars, or [B] arrays read at id // rows_per (the
+    batched entry).  sigma and owner are updated in place; returns (tgt,
+    bid)."""
+    dt = vals_m.dtype.type
+    n, K = cols.shape
+    m = prices.shape[0]
+    neg = PA.neg_sentinel_np(vals_m.dtype)[()]
+    hneg = dt(PA.half_neg(vals_m.dtype))
+    low = dt(-np.inf) if dt == np.float32 else dt(np.iinfo(np.int32).min)
+    tgt = np.full(ids.shape[0], m, np.int32)
+    bid = np.zeros(ids.shape[0], dt)
+    for i, rid in enumerate(ids):
+        if rid >= n:
+            continue
+        sig = sigma[rid] if phase_start else -1
+        lanes = []
+        for g in range(G):
+            r = dict(v1=low, v2=neg, a=dt(0), cur=dt(0), slot=K, col=0)
+            for k0 in range(0, K, LANE_SLOTS * G):
+                for u in range(LANE_SLOTS):
+                    k = k0 + V * (g + (u // V) * G) + u % V
+                    if k >= K:
+                        break
+                    c, v = cols[rid, k], vals_m[rid, k]
+                    w = dt(v - prices[c])
+                    if r["slot"] == K:
+                        r.update(v1=w, slot=k, a=v, col=c)
+                    elif w > r["v1"]:
+                        r.update(v2=r["v1"] if r["v1"] > r["v2"] else r["v2"],
+                                 v1=w, slot=k, a=v, col=c)
+                    else:
+                        r["v2"] = w if w > r["v2"] else r["v2"]
+                    if c == sig and w > hneg:
+                        r["cur"] = dt(r["cur"] + w)
+            lanes.append(r)
+        off = G // 2
+        while off:
+            merged = []
+            for g in range(G):
+                me, o = lanes[g], lanes[g ^ off]
+                take = o["v1"] > me["v1"] or (o["v1"] == me["v1"]
+                                              and o["slot"] < me["slot"])
+                win, lose = (o, me) if take else (me, o)
+                merged.append(dict(
+                    win, v2=lose["v1"] if lose["v1"] > win["v2"] else win["v2"],
+                    cur=dt(me["cur"] + o["cur"])))
+            lanes, off = merged, off // 2
+        r = lanes[0]
+        e, bp = eps, bigp
+        if rows_per is not None:
+            e, bp = eps[rid // rows_per], bigp[rid // rows_per]
+        nv = nvalid[rid]
+        v2 = dt(r["v1"] - bp) if nv < 2 else r["v2"]
+        bidding = nv > 0
+        if phase_start:
+            viol = sig >= 0 and r["cur"] < dt(r["v1"] - e)
+            if viol:
+                owner[sig] = -1
+                sigma[rid] = -1
+            bidding = bidding and (sig < 0 or viol)
+        bid[i] = dt(dt(dt(r["a"] + dt(0)) - v2) + e)
+        tgt[i] = r["col"] if bidding else m
+    return tgt, bid
+
+
+def _lane_case(rng, K, dtype, mode, n=48, m=80):
+    """Rows of K slots (first nvalid real, sorted distinct columns; padding
+    col 0 at the neg sentinel), nv = 0, 1, 2 among them, values and prices
+    from small sets (equal w at several slots, -0.0 and +0.0), and for
+    the phase-start modes a matching over real entries: at random ones
+    ('start_viol', violators among them) or at each row's first best
+    column ('start_clean', none)."""
+    nvalid = rng.integers(0, K + 1, n).astype(np.int32)
+    nvalid[:3] = np.minimum([0, 1, 2], K)
+    cols = np.zeros((n, K), np.int32)
+    for r in range(n):
+        cols[r, :nvalid[r]] = np.sort(rng.choice(m, nvalid[r], replace=False))
+    if dtype == np.float32:
+        vals = rng.choice(np.array([-0.0, 0.0, 2.5, 5.0, -2.5], np.float32),
+                          (n, K))
+        prices = rng.choice(np.array([0.0, 0.0, 2.5, 5.0], np.float32), m)
+        eps, bigp = np.float32(0.75), np.float32(11.0)
+    else:
+        vals = rng.choice(np.array([0, 3, 6, -3], np.int32), (n, K))
+        prices = rng.choice(np.array([0, 0, 3, 6], np.int32), m)
+        eps, bigp = np.int32(2), np.int32(13)
+    valid = np.arange(K) < nvalid[:, None]
+    vals_m = np.where(valid, vals, PA.neg_sentinel_np(dtype)).astype(dtype)
+    sigma = np.full(n, -1, np.int32)
+    owner = np.full(m, -1, np.int32)
+    for r in rng.permutation(n):
+        if mode == "round" or nvalid[r] == 0 or rng.random() < 0.3:
+            continue
+        w = vals_m[r, :nvalid[r]] - prices[cols[r, :nvalid[r]]]
+        k = int(np.argmax(w)) if mode == "start_clean" else \
+            int(rng.integers(nvalid[r]))
+        if owner[cols[r, k]] < 0:
+            owner[cols[r, k]], sigma[r] = r, cols[r, k]
+    return cols, vals_m, nvalid, prices, sigma, owner, eps, bigp
+
+
+@pytest.mark.parametrize("mode", ["round", "start_viol", "start_clean"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 10, 17, 52, 64])
+def test_lane_split_merge_matches_plain(K, dtype, mode):
+    """K1's row group (csrc/bid.cu), mirrored in numpy for every lane count
+    G the kernel takes and both load widths, bit for bit against
+    bid_topk_plain and bid_topk_batched_plain: targets, bids, and the
+    violators freed in sigma and owner."""
+    rng = np.random.default_rng(K * 10 + ["round", "start_viol",
+                                          "start_clean"].index(mode))
+    cols, vals_m, nvalid, prices, sigma, owner, eps, bigp = _lane_case(
+        rng, K, dtype, mode)
+    n = cols.shape[0]
+    phase_start = mode != "round"
+    live = np.arange(n) if phase_start else \
+        np.flatnonzero((sigma < 0) & (nvalid > 0))
+    ids = rng.permutation(np.concatenate([live, np.full(9, n)])) \
+        .astype(np.int32)
+    s0, o0 = _t(sigma), _t(owner)
+    want = bid_topk_plain(_t(ids), _t(cols), _t(vals_m), _t(nvalid),
+                          _t(prices), s0, o0, eps, bigp,
+                          phase_start=phase_start)
+    freed = int((s0.numpy() != sigma).sum())
+    # one slot a row leaves no better column to violate for
+    assert (freed > 0) == (mode == "start_viol" and K > 1)
+    # batched: two instances of n / 2 rows, each with its own eps and bigp
+    eps_of = np.array([eps, eps * 2], dtype)
+    bigp_of = np.array([bigp, bigp + 1], dtype)
+    s1, o1 = _t(sigma), _t(owner)
+    want_b = bid_topk_batched_plain(_t(ids), _t(cols), _t(vals_m),
+                                    _t(nvalid), _t(prices), s1, o1,
+                                    _t(eps_of), _t(bigp_of), n // 2,
+                                    phase_start=phase_start)
+    vecs = (1, 4) if K % 4 == 0 else (1,)
+    G0, V0 = row_group(K, _t(cols), _t(vals_m))        # the launcher's pick
+    assert G0 in ROW_GROUPS and V0 in vecs and \
+        LANE_SLOTS * G0 >= min(K, 32 * LANE_SLOTS)
+    for G in ROW_GROUPS:
+        for V in vecs:
+            for (tw, bw), s_w, o_w, kw in (
+                    (want, s0, o0, {}),
+                    (want_b, s1, o1, dict(eps=eps_of, bigp=bigp_of,
+                                          rows_per=n // 2))):
+                s, o = sigma.copy(), owner.copy()
+                args = dict(eps=eps, bigp=bigp)
+                args.update(kw)
+                tgt, bid = _lane_split_bids(ids, cols, vals_m, nvalid,
+                                            prices, s, o, G=G, V=V,
+                                            phase_start=phase_start, **args)
+                np.testing.assert_array_equal(tgt, tw.numpy())
+                np.testing.assert_array_equal(_bits(bid), _bits(bw.numpy()))
+                np.testing.assert_array_equal(s, s_w.numpy())
+                np.testing.assert_array_equal(o, o_w.numpy())
 
 
 def _resolve_case(rng, dtype, nb=200, m=40):
