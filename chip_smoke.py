@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py               # every phase (below)
     python3 chip_smoke.py --k12 LABEL   # K1 and K2's timings alone
+    python3 chip_smoke.py --k3 LABEL    # K3's timings on the headline tail
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -46,12 +47,16 @@ of which raises on failure (so the exit code is non-zero):
   6. gs       -- K3 (ops.gs_auction_device) on the headline's tail: the
                  square hybrid's device pass is rebuilt from the package's
                  functions, owner derived, the unassigned rows with entries
-                 queued ascending (the native engine's order).  K3 with its
-                 row prefetch on and off, each against its twin for the
-                 first 20,000 bids (exact), then each and the native forward
-                 auction_gs on that state to the end (or all to one cap, if
-                 K3 would need more than 60 s): prices bit for bit, owner
-                 and bid counts equal.  Then the reference's _scan stubs
+                 queued ascending (the native engine's order).  K3 with
+                 prefetch on (the look-ahead bid warps beside the commit
+                 warp) and off (the commit warp alone), each against its
+                 twin for the first 20,000 bids (exact), then each and the
+                 native forward auction_gs on that state to the end (or all
+                 to one cap, if K3 would need more than 60 s): prices bit
+                 for bit, owner and bid counts equal; the kernel's counters
+                 (speculative, redone, single-row-ring bids and the ring
+                 length histogram) must add up, and the histogram must not
+                 depend on prefetch.  Then the reference's _scan stubs
                  ("const", "noprices") on the same state, prefetch on and
                  off: exact against the twin over 20,000 bids, timed over
                  1,000,000 bids (the chain without its K price gathers)
@@ -116,14 +121,19 @@ ladder, with batched_launches beside from phase 10: K1's batched entry in
 mode="device", K2 in both batched modes; DK: the cold config-3 hybrid
 solve; K3: the two tail runs; P1-P17: the probe suite), its time and its
 plain version's time (K1, K2: C = 1M, float32, with ms_device beside;
-the ladder: the pass of phase 3; K3: the first 20,000 bids of the tail, with ms_noprefetch beside;
+the ladder: the pass of phase 3; K3: one call over the first 20,000 bids
+of the tail, with ms_noprefetch beside, whole_tail_us_per_bid (prefetch on
+and off, and the native forward GS, over the whole tail), bid_warps and
+the counters;
 P1-P17: the reference shapes, P16/P17 at stage 3, with ns/iteration or
 ns/bid of the scaled runs beside), its bound (bound_ms, bound_by,
 bound_bytes: each input read once and each output written once on that
 run's data, over 3.35 TB/s, or its operations over 67 TFLOP/s) and the
 time of one PyTorch call computing the same function where there is one
 (library_ms: scatter_reduce_ amax for K2's resolve, index_select for the
-row copies of P1-P3, P6 and P9; else null).  DK's entry is at C = 131,072
+row copies of P1-P3, P6 and P9, whose entries also carry ms_device and
+library_ms_device, the device time per call of 20 calls back to back;
+else null).  DK's entry is at C = 131,072
 (the first round of a chunk), with its C = 256 numbers beside; K1's
 carries its batched entry's numbers as batched_* (a chunk of 32 instances,
 131,072 rows, as mode="device" runs it; all 256 instances as
@@ -144,6 +154,13 @@ imports sslap_tpu_torch from its own directory, so a copy of it placed at
 the root of another tree of this repository (an older commit unpacked with
 git archive) measures that tree's kernels with this code: run the two
 trees in turns (A, B, B, A) in one process sequence on one card.
+
+--k3 LABEL runs only phase 6's K3 measurements (no _scan stubs), plus the
+whole tail at each number of bid warps in K3_SWEEP (through the module
+constant ops.gs_kernel.BID_WARPS), and prints them as one line "K3 LABEL
+{...}"; a copy of the script at the root of
+another tree measures that tree's K3 the same way (counters are null for a
+K3 that keeps none).
 """
 
 from __future__ import annotations
@@ -170,6 +187,7 @@ from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched, \
     bid_topk_batched_plain, bid_topk_plain, commit, commit_plain, dense_bid, \
     dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
     ladder_phase_plain
+from sslap_tpu_torch.ops import gs_kernel as GK
 from sslap_tpu_torch.ops import ladder as L
 from sslap_tpu_torch.ops import probe_gs as PG
 
@@ -207,6 +225,7 @@ PLAIN_WHOLE_SECONDS = 30.0    # the ladder's plain version runs the whole
 GS_TWIN_BIDS = 20_000         # K3 against its twin over this prefix
 GS_STUB_BIDS = 1_000_000      # the _scan stubs' timed runs on the tail
 GS_MAX_SECONDS = 60.0         # above this, K3 and native stop at one cap
+K3_SWEEP = (0, 1, 2, 4, 16)   # --k3: the tail at these bid warps too
 
 
 def log(*args) -> None:
@@ -909,19 +928,34 @@ def _k3_bound(state, out):
                   + 4 * changed + 16, 3 * K * bids)
 
 
-def phase_gs(inp, cold_its):
-    """K3 against its twin, then K3 against the native forward GS, on the
-    headline's tail state, with its row prefetch on and off; then the
-    reference's _scan stubs on the same state.  Returns (max abs error vs
-    the twin, K3 ms with and without prefetch and twin ms over the first
-    GS_TWIN_BIDS bids, launches in the tail runs, us/bid per (scan,
-    prefetch), K3's bound over the first GS_TWIN_BIDS bids)."""
+def _k3_counters():
+    """The last K3 launch's counters, or None for a tree whose K3 keeps
+    none (an older commit measured with --k3)."""
+    read = getattr(gs_auction_device, "counters", None)
+    return None if read is None else read()
+
+
+def _check_counters(cnt, what):
+    """With bid warps, speculative + redone + single-row-ring = bids; the
+    ring histogram always adds up to the bids."""
+    if cnt is None:
+        return
+    parts = cnt["speculative"] + cnt["redone"] + cnt["single_row_ring"]
+    if sum(cnt["ring"].values()) != cnt["bids"] or (
+            cnt["speculative"] + cnt["redone"] > 0 and parts != cnt["bids"]):
+        raise AssertionError(f"K3 counters do not add up ({what}): {cnt}")
+
+
+def tail_state(inp, cold_its=None):
+    """The headline's tail: the square hybrid's device pass rebuilt from
+    the package's functions, owner derived, the unassigned rows with
+    entries queued ascending (the native engine's order).  Returns (the K3
+    arguments before max_bids, sigma, the pass's rounds)."""
     t0 = time.perf_counter()
     res, _ = headline_device_pass(inp)
-    e_min, bigp, csr = inp["e_min"], inp["bigp"], inp["csr"]
     cols_d, vals_d, nvalid_d = inp["ell"]
     torch.cuda.synchronize()
-    if res.rounds != cold_its:
+    if cold_its is not None and res.rounds != cold_its:
         raise AssertionError(f"rebuilt device pass ran {res.rounds} rounds, "
                              f"the cold solve {cold_its}")
     n = res.sigma.shape[0]
@@ -935,16 +969,35 @@ def phase_gs(inp, cold_its):
     pending = rows[(sigma < 0) & (nvalid_d > 0)]          # ascending
     queue = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
     queue[:pending.shape[0]] = pending
-    eps = np.float32(e_min)
+    eps = np.float32(inp["e_min"])
     state = (cols_d, vals_d, queue, pending.shape[0], prices, owner, eps,
-             bigp)
+             inp["bigp"])
     log(f"[6 gs] headline device pass rebuilt: {res.rounds} rounds, "
-        f"{pending.shape[0]} rows queued, eps {eps!r}, bigp {bigp!r} "
-        f"({time.perf_counter() - t0:.2f} s)")
+        f"{pending.shape[0]} rows queued, eps {eps!r}, bigp "
+        f"{inp['bigp']!r} ({time.perf_counter() - t0:.2f} s)")
+    return state, sigma, res.rounds
 
+
+def phase_gs(inp, cold_its=None, stubs=True, sweep=()):
+    """K3 against its twin, then K3 against the native forward GS, on the
+    headline's tail state, with prefetch (the look-ahead bid warps) on and
+    off; then (stubs) the reference's _scan stubs on the same state.
+    Returns a dict: max abs error vs the twin; ms and ms_noprefetch, one
+    call each over the first GS_TWIN_BIDS bids (CUDA events), and the
+    twin's plain_ms; the launches of the two tail runs; tail_us_per_bid
+    per (scan, prefetch) (whole tail for "full", GS_STUB_BIDS for the
+    stubs); whole_tail_us_per_bid and the native forward GS's us/bid; the
+    bound over the first GS_TWIN_BIDS bids; each tail run's counters; and
+    for each number of bid warps in ``sweep`` (set through the module
+    constant, where the tree has one) the whole tail's us/bid and
+    counters with prefetch on."""
+    state, sigma, rounds = tail_state(inp, cold_its)
+    csr, e_min, bigp = inp["csr"], inp["e_min"], inp["bigp"]
+    prices, owner = state[4], state[5]
+    n = sigma.shape[0]
     want, twin_ms = _events_ms(lambda: gs_auction_plain(*state,
                                                         GS_TWIN_BIDS))
-    k3_ms, err = {}, 0.0
+    k3_ms, err, cnt_prefix = {}, 0.0, {}
     for prefetch in (True, False):
         got, k3_ms[prefetch] = _events_ms(lambda: gs_auction_device(
             *state, GS_TWIN_BIDS, prefetch=prefetch))
@@ -954,6 +1007,8 @@ def phase_gs(inp, cold_its):
             raise AssertionError(f"gs_auction_device(prefetch={prefetch}) "
                                  f"differs from its twin")
         err = max(err, _abs_err(got[0], want[0]))
+        cnt_prefix[prefetch] = _k3_counters()
+        _check_counters(cnt_prefix[prefetch], f"first {GS_TWIN_BIDS} bids")
     bound = _k3_bound(state, want)
     log(f"[6 gs] bound over the first {GS_TWIN_BIDS} bids: {bound}")
     us_per_bid = 1e3 * max(k3_ms.values()) / GS_TWIN_BIDS
@@ -961,7 +1016,7 @@ def phase_gs(inp, cold_its):
         f" ({1e3 * k3_ms[True] / GS_TWIN_BIDS:.3f} us/bid), no prefetch "
         f"{k3_ms[False]:.3f} ms ({1e3 * k3_ms[False] / GS_TWIN_BIDS:.3f} "
         f"us/bid), twin {twin_ms:.3f} ms ({1e3 * twin_ms / GS_TWIN_BIDS:.3f}"
-        f" us/bid); exact")
+        f" us/bid); exact; counters {cnt_prefix}")
 
     def native(max_bids):
         p = prices.cpu().numpy().copy()
@@ -983,14 +1038,25 @@ def phase_gs(inp, cold_its):
             f"{cap} bids")
         p_nat, o_nat, nat_bids, nat_s = native(cap)
         nat_bids = cap if nat_bids == -1 else nat_bids
+    native_us = 1e6 * nat_s / nat_bids
     log(f"[6 gs] native forward GS on the tail: {nat_bids} bids, "
-        f"{nat_s:.3f} s ({1e6 * nat_s / nat_bids:.3f} us/bid)")
+        f"{nat_s:.3f} s ({native_us:.3f} us/bid)")
     gs_auction_device.launches = 0
-    us = {}
-    for prefetch in (True, False):
+    us, cnt_tail, swept = {}, {}, {}
+    default_warps = getattr(GK, "BID_WARPS", None)
+    runs = [(True, None), (False, None)]
+    if default_warps is not None:
+        runs += [(True, w) for w in sweep]
+    for prefetch, warps in runs:
+        if warps is not None:
+            GK.BID_WARPS = warps
         t = time.perf_counter()
-        out, k3_full_ms = _events_ms(lambda: gs_auction_device(
-            *state, cap, prefetch=prefetch))
+        try:
+            out, k3_full_ms = _events_ms(lambda: gs_auction_device(
+                *state, cap, prefetch=prefetch))
+        finally:
+            if default_warps is not None:
+                GK.BID_WARPS = default_warps
         k3_s = time.perf_counter() - t
         k3_bids, left = int(out[3]), int(out[4])
         if not (k3_bids == nat_bids and (left == 0) == (cap == budget)
@@ -1000,19 +1066,35 @@ def phase_gs(inp, cold_its):
             raise AssertionError(
                 f"K3 (prefetch={prefetch}) differs from the native GS on the"
                 f" tail (bids {k3_bids} vs {nat_bids}, left {left})")
+        cnt = _k3_counters()
+        _check_counters(cnt, "the tail")
         log(f"[6 gs] tail, K3 prefetch={prefetch}: {k3_bids} bids in "
             f"{k3_s:.3f} s (events {k3_full_ms:.1f} ms, "
             f"{1e3 * k3_full_ms / k3_bids:.3f} us/bid); rows left {left}; "
-            f"prices bitwise, owner and bids equal to native")
+            f"prices bitwise, owner and bids equal to native; bid warps "
+            f"{getattr(gs_auction_device, 'bid_warps', None)}, counters "
+            f"{cnt}")
+        if warps is not None:
+            swept[warps] = dict(us_per_bid=1e3 * k3_full_ms / k3_bids,
+                                bid_warps=gs_auction_device.bid_warps,
+                                counters=cnt)
+            continue
+        cnt_tail[prefetch] = cnt
         us[("full", prefetch)] = 1e3 * k3_full_ms / k3_bids
-    launches = gs_auction_device.launches
+        if prefetch:
+            warps_used = getattr(gs_auction_device, "bid_warps", None)
+        if len(cnt_tail) == 2:
+            launches = gs_auction_device.launches
     if launches != 2:
         raise AssertionError(f"K3 launched {launches} times on the tail")
+    if None not in cnt_tail.values() and (
+            cnt_tail[True]["ring"] != cnt_tail[False]["ring"]):
+        raise AssertionError("the ring histogram depends on prefetch")
 
     # The chain's links: "noprices" drops the K price gathers, "const"
     # bids on the first slot after one price read; each stub against its
     # twin over the prefix, then timed over GS_STUB_BIDS bids.
-    for scan in ("const", "noprices"):
+    for scan in ("const", "noprices") if stubs else ():
         want = gs_auction_plain(*state, GS_TWIN_BIDS, _scan=scan)
         for prefetch in (True, False):
             got = gs_auction_device(*state, GS_TWIN_BIDS, prefetch=prefetch,
@@ -1027,7 +1109,18 @@ def phase_gs(inp, cold_its):
             log(f"[6 gs] tail, K3 _scan={scan} prefetch={prefetch}: "
                 f"{int(out[3])} bids, {us[(scan, prefetch)]:.3f} us/bid; "
                 f"== twin over {GS_TWIN_BIDS} bids")
-    return err, k3_ms[True], k3_ms[False], twin_ms, launches, us, bound
+    return dict(
+        max_abs_err=err, ms=k3_ms[True], ms_noprefetch=k3_ms[False],
+        plain_ms=twin_ms, launches=launches, bound=bound, rounds=rounds,
+        tail_us_per_bid={f"{scan}{'' if pf else ' noprefetch'}": v
+                         for (scan, pf), v in us.items()},
+        whole_tail_bids=nat_bids,
+        whole_tail_us_per_bid={"prefetch": us[("full", True)],
+                               "noprefetch": us[("full", False)],
+                               "native_forward_gs": native_us},
+        bid_warps=warps_used, bid_warps_sweep=swept,
+        counters={"tail": cnt_tail[True], "tail noprefetch": cnt_tail[False],
+                  "first_20k": cnt_prefix[True]})
 
 
 # ---------------------------------------------------------------------------
@@ -1142,6 +1235,7 @@ def phase_jacobi():
 
 
 PROBE_ITERS = 500_000         # P6 / P9: rows 2i of a [1M, 128] int32 table
+PROBE_B2B = 20                # calls queued back to back (ms_device)
 LADDER_PLAIN_BIDS = 20_000    # the ladder's plain version on a prefix
 
 
@@ -1196,25 +1290,34 @@ def _probe_bound(name, x, out):
     return _bound(read + written)
 
 
-def _probe_library_ms(name, x):
-    """One PyTorch call that computes the probe's copy: index_select of
-    the rows it copies (P1-P3: rows row, row + 1; P6, P9: rows 2i, 2i + 1
-    for i < n); None for the others."""
+def _probe_rows(name, x):
+    """The rows a copy probe copies (P1-P3: rows row, row + 1; P6, P9:
+    rows 2i, 2i + 1 for i < n), else None."""
     if name.startswith("dma_"):
-        rows = torch.arange(x[0][0], x[0][0] + 2, device=x[1].device)
-    elif name in ("while_double_buffer", "sem_2d_dynamic"):
-        rows = torch.arange(2 * x[0][0], device=x[1].device)
-    else:
+        return torch.arange(x[0][0], x[0][0] + 2, device=x[1].device)
+    if name in ("while_double_buffer", "sem_2d_dynamic"):
+        return torch.arange(2 * x[0][0], device=x[1].device)
+    return None
+
+
+def _probe_library_ms(name, x):
+    """One PyTorch call that computes the probe's copy, index_select of
+    the rows it copies: (median CUDA-event ms of one call, device ms per
+    call of PROBE_B2B calls back to back), or None for the others."""
+    rows = _probe_rows(name, x)
+    if rows is None:
         return None
     torch.index_select(x[1], 0, rows)           # warm up: first-call setup
     torch.cuda.synchronize()
-    return _timed(lambda: torch.index_select(x[1], 0, rows))[1]
+    run = lambda: torch.index_select(x[1], 0, rows)  # noqa: E731
+    return _timed(run)[1], _device_ms(tuple, run, PROBE_B2B)
 
 
 def _probe_against_plain(name, dev):
     """Probe ``name`` at its reference shapes: kernel == plain version bit
     for bit, the reference's asserts; (max abs error, kernel ms, plain
-    ms, bound, library ms)."""
+    ms, bound, library ms, back-to-back ms: {kernel, library} for the
+    copy probes, else None)."""
     kernel = PG.PROBES[name]
     plain = PG.plain_of(kernel)
     args, kw = PG.make_inputs(name)
@@ -1231,11 +1334,16 @@ def _probe_against_plain(name, dev):
               for a, b in zip(got, want))
     bound = (None if kernel is gs_auction_device
              else _probe_bound(name, x, got))
-    lib_ms = None if bound is None else _probe_library_ms(name, x)
+    lib = None if bound is None else _probe_library_ms(name, x)
+    lib_ms, b2b = None, None
+    if lib is not None:
+        lib_ms = lib[0]
+        b2b = dict(kernel=_device_ms(tuple, lambda: kernel(*x, **kw),
+                                     PROBE_B2B), library=lib[1])
     log(f"[9 probes] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
         f"exact, the reference's asserts hold; bound {bound}, library "
-        f"{lib_ms}")
-    return err, k_ms, p_ms, bound, lib_ms
+        f"{lib_ms}, back to back {b2b}")
+    return err, k_ms, p_ms, bound, lib_ms, b2b
 
 
 def _pump_against_start_wait(dev):
@@ -1327,12 +1435,15 @@ def phase_probes():
     entries = []
     for key, kernel in PG.KERNELS.items():
         names = [nm for nm, k in PG.PROBES.items() if k is kernel]
-        _, k_ms, p_ms, bound, lib_ms = per_probe[names[-1]]
+        _, k_ms, p_ms, bound, lib_ms, b2b = per_probe[names[-1]]
         entry = dict(name=f"{key} {kernel.name}", route="cuda",
                      source=kernel.source, replaces=kernel.replaces,
                      launches=launches[key],
                      max_abs_err=max(per_probe[nm][0] for nm in names),
                      ms=k_ms, plain_ms=p_ms, **bound, library_ms=lib_ms)
+        if b2b is not None:
+            entry["ms_device"] = b2b["kernel"]
+            entry["library_ms_device"] = b2b["library"]
         if kernel.name in pump:
             entry["ns_per_iter_500k"] = pump[kernel.name]
         if kernel in (PG.gs_ladder_uni, PG.gs_ladder):
@@ -1825,9 +1936,7 @@ def main() -> None:
     phase_parity()
     launches, cold_its = phase_headline(solver, loc, vv, inp)
     del solver
-    name = "gs_auction_device"
-    errs[name], times[name], k3_noprefetch_ms, times[name + "_plain"], \
-        launches[name], k3_us, k3_bound = phase_gs(inp, cold_its)
+    k3 = phase_gs(inp, cold_its)
     del inp
     launches.update(phase_rect())
     phase_jacobi()
@@ -1856,12 +1965,12 @@ def main() -> None:
             **batched[name]))
     name = "gs_auction_device"
     kernels.append(dict(
-        name=name, **KERNELS[name], launches=launches[name],
-        max_abs_err=errs[name], ms=times[name],
-        plain_ms=times[name + "_plain"], **k3_bound, library_ms=None,
-        ms_noprefetch=k3_noprefetch_ms,
-        tail_us_per_bid={f"{scan}{'' if pf else ' noprefetch'}": v
-                         for (scan, pf), v in k3_us.items()}))
+        name=name, **KERNELS[name], launches=k3["launches"],
+        max_abs_err=k3["max_abs_err"], ms=k3["ms"], plain_ms=k3["plain_ms"],
+        **k3["bound"], library_ms=None,
+        **{key: k3[key] for key in (
+            "ms_noprefetch", "tail_us_per_bid", "whole_tail_us_per_bid",
+            "bid_warps", "counters")}))
     kernels.append(dict(name="ladder", **KERNELS["ladder"],
                         launches=launches["ladder"], **ladder))
     # DK at C = all rows of a chunk (the first round), and at C = 256
@@ -1916,8 +2025,26 @@ def k12(label: str) -> None:
     print("K12", label, json.dumps(out), flush=True)
 
 
+def k3(label: str) -> None:
+    """--k3 LABEL: phase 6's K3 measurements alone on the headline's tail
+    (the twin over the first GS_TWIN_BIDS bids, then the whole tail against
+    the native forward GS, prefetch on and off), printed as one line "K3
+    LABEL {...}" (numbers unrounded)."""
+    phase_device()
+    phase_build()
+    solver, _, _ = headline_solver()
+    inp = headline_inputs(solver)
+    del solver
+    out = phase_gs(inp, stubs=False, sweep=K3_SWEEP)
+    print("K3", label, json.dumps(
+        {"tree": os.path.dirname(os.path.abspath(__file__)), **out}),
+        flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--k12":
         k12(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--k3":
+        k3(sys.argv[2] if len(sys.argv) > 2 else "tree")
     else:
         main()

@@ -17,7 +17,8 @@ dense_bid.py -- DK, ``dense_bid``: the dense top-2 bid of the batched
                 XLA-compiled sslap_tpu/dense_batch.py::_dense_bids)
 gs_kernel.py -- K3, ``gs_auction_device``: the serial Gauss-Seidel auction
                 on the device (with the reference's ``prefetch`` and
-                ``_scan`` surface); replaces
+                ``_scan`` surface; a commit warp, and with prefetch
+                look-ahead bid warps whose results it validates); replaces
                 sslap_tpu/ops/gs_kernel.py::_gs_kernel
 probe_gs.py  -- P1-P17, the GS micro-probes of
                 benchmarks/probe_mosaic_gs.py (row copies, scalar table

@@ -89,11 +89,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sslap_ladder_ctrl_bytes.restype = ctypes.c_int
     lib.sslap_ladder_ctrl_bytes.argtypes = []
     lib.sslap_gs_f32.restype = ctypes.c_int
-    # cols, vals, K, queue, cap, qcount, prices, owner, eps, bigp, neg,
-    # half, real_min, max_bids, prefetch, scan, stats, stream
+    # cols, vals, K, queue, cap, qcount, prices, owner, m, packed, eps,
+    # bigp, neg, half, real_min, max_bids, bid_warps, scan, stats, stream
     f32 = ctypes.c_float
-    lib.sslap_gs_f32.argtypes = [p, p, i32, p, i64, i64, p, p, f32, f32, f32,
-                                 f32, f32, i64, c_int, c_int, p, p]
+    lib.sslap_gs_f32.argtypes = [p, p, i32, p, i64, i64, p, p, i64, p, f32,
+                                 f32, f32, f32, f32, i64, c_int, c_int, p, p]
+    lib.sslap_gs_smem.restype = ctypes.c_longlong
+    lib.sslap_gs_smem.argtypes = [i32, c_int]
     # P1-P3: src, row, off, scratch_rows, out, stream
     lib.sslap_probe_copy.restype = c_int
     lib.sslap_probe_copy.argtypes = [p, i64, i32, i32, p, p]

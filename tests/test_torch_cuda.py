@@ -33,6 +33,7 @@ from sslap_tpu_torch.ops import bid_topk, bid_topk_batched, \
     dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase
 from sslap_tpu_torch.ops import probe_gs as PG
 from sslap_tpu_torch.ops import bid as PBid
+from sslap_tpu_torch.ops import gs_kernel as PGS
 
 pytestmark = pytest.mark.cuda
 
@@ -217,11 +218,44 @@ def _rect_instance(n, m, seed=18, k=6):
     return np.stack([rr[idx], cc[idx]], 1), rng.integers(1, 1000, idx.shape[0])
 
 
+# bid warps beside K3's commit warp: none (prefetch=False's path), one,
+# four, and the module's default
+GS_WARPS = [0, 1, 4, None]
+
+
+def _set_bid_warps(monkeypatch, warps):
+    if warps is not None:
+        monkeypatch.setattr(PGS, "BID_WARPS", warps)
+    return PGS.BID_WARPS
+
+
+def _check_gs_counters(out, prefetch=True, ring=None):
+    """The last launch's counters: bids and rows left as returned, the
+    ring histogram adds up (and equals ``ring``, the serial run's, when
+    given), and with bid warps speculative + redone + single-row = bids."""
+    cnt = gs_auction_device.counters()
+    bids = int(out[3])
+    assert cnt["bids"] == bids and cnt["left"] == int(out[4])
+    assert sum(cnt["ring"].values()) == bids
+    assert cnt["single_row_ring"] == cnt["ring"]["1"]
+    if ring is not None:
+        assert cnt["ring"] == ring
+    if prefetch and gs_auction_device.bid_warps:
+        assert cnt["speculative"] + cnt["redone"] \
+            + cnt["single_row_ring"] == bids
+    else:
+        assert cnt["speculative"] == cnt["redone"] == 0
+    return cnt
+
+
+@pytest.mark.parametrize("warps", GS_WARPS)
 @pytest.mark.parametrize("n,k", [(3000, 8), (400, 60)])
-def test_gs_kernel_matches_twin_and_native(dev, n, k):
+def test_gs_kernel_matches_twin_and_native(dev, n, k, warps, monkeypatch):
     """K3 from a cold start: capped, against the twin (all five outputs);
     to the end, against the native forward GS (prices bit for bit).  K = 60
-    puts two slots on some lanes."""
+    puts two slots on some lanes.  Each number of look-ahead bid warps
+    (the module constant), with the counters checked."""
+    want_warps = _set_bid_warps(monkeypatch, warps)
     loc, val = _instance(n, seed=19, k=k)
     val = val.copy()
     val[::17] = 0                                 # zero costs: -0.0 values
@@ -240,10 +274,15 @@ def test_gs_kernel_matches_twin_and_native(dev, n, k):
     want = gs_auction_plain(*args, 2 * n)
     torch.cuda.synchronize()
     assert gs_auction_device.launches == before + 1
+    assert gs_auction_device.bid_warps == want_warps
     assert int(got[3]) == 2 * n and int(got[4]) > 0
     for a, b in zip(got, want):
         np.testing.assert_array_equal(_bits(a), _bits(b))
+    serial = PGS.gs_lookahead_mirror(*[a.cpu() if torch.is_tensor(a) else a
+                                       for a in args], 2 * n, warps=0)[1]
+    _check_gs_counters(got, ring=serial["ring"])
     full = gs_auction_device(*args, 10 ** 9)
+    _check_gs_counters(full)
     prices = np.zeros(n, np.float32)
     sigma = np.full(n, -1, np.int32)
     owner = np.full(n, -1, np.int32)
@@ -254,11 +293,14 @@ def test_gs_kernel_matches_twin_and_native(dev, n, k):
     np.testing.assert_array_equal(_bits(full[0]), prices.view(np.int32))
 
 
+@pytest.mark.parametrize("warps", GS_WARPS)
 @pytest.mark.parametrize("scan", ["full", "const", "noprices"])
-def test_gs_kernel_prefetch_does_not_change_results(dev, scan):
-    """K3 with and without its row prefetch: identical outputs, equal to
-    the twin.  K = 40 puts two slots on some lanes; a 3-row ring wraps
-    while it drains, so the prefetch of a just-pushed row runs."""
+def test_gs_kernel_prefetch_does_not_change_results(dev, scan, warps,
+                                                    monkeypatch):
+    """K3 with and without prefetch (the look-ahead bid warps): identical
+    outputs, equal to the twin.  K = 40 puts two slots on some lanes; a
+    3-row ring wraps while it drains, so the ring-of-one path runs."""
+    _set_bid_warps(monkeypatch, warps)
     for n, k, queued in ((2000, 40, 2000), (600, 8, 3)):
         loc, val = _instance(n, seed=21, k=k)
         prob = P.from_coo(loc, val, shape=(n, n))
@@ -279,6 +321,76 @@ def test_gs_kernel_prefetch_does_not_change_results(dev, scan):
             for a, b in zip(outs[0], other):
                 np.testing.assert_array_equal(_bits(a), _bits(b))
         assert int(outs[0][3]) >= queued
+        ring = _check_gs_counters(outs[1], prefetch=False)["ring"]
+        again = gs_auction_device(*args, prefetch=True, _scan=scan)
+        _check_gs_counters(again, prefetch=scan == "full", ring=ring)
+
+
+def _gs_case(case, dev):
+    """K3 arguments of a look-ahead stress case (the shapes of
+    test_torch_gs_kernel.py's CPU mirror cases, larger): "conflicts" (every
+    row on 4 of 6 hot columns), "chain" (one row queued, every other
+    matched: a ring of one row throughout), "k52" (rows of 52 slots, two
+    lane groups), "k1" (one slot a row, two rows on each column: no
+    assignment exists, it stops at max_bids with rows left)."""
+    rng = np.random.default_rng({"conflicts": 51, "chain": 52, "k52": 53,
+                                 "k1": 54}[case])
+    n = m = 2048
+    K = {"conflicts": 5, "chain": 4, "k52": 52, "k1": 1}[case]
+    if case == "conflicts":
+        pick = lambda i: [i, *rng.choice(6, 4, replace=False)]  # noqa
+    elif case == "chain":
+        pick = lambda i: [i, *rng.integers(1, m, 3)]  # noqa
+    elif case == "k52":
+        pick = lambda i: [i, *rng.integers(0, m, int(rng.integers(0, K)))]  # noqa
+    else:
+        pick = lambda i: [i // 2]  # noqa
+    cols = np.zeros((n, K), np.int32)
+    vals = np.full((n, K), neg_sentinel_np(np.float32), np.float32)
+    for i in range(n):
+        c = np.unique(np.asarray(pick(i)))[:K]
+        cols[i, :c.shape[0]] = c
+        vals[i, :c.shape[0]] = -(rng.random(c.shape[0]) * 30).astype(
+            np.float32)
+    if case == "conflicts":
+        vals[cols >= 6] -= 40
+    prices = np.zeros(m, np.float32)
+    owner = np.full(m, -1, np.int32)
+    queue = np.full(n + 1, -1, np.int32)
+    queue[:n], qcount = np.arange(n), n
+    if case == "chain":
+        vals[0, 0] -= 60
+        owner[1:] = np.arange(1, n)
+        queue[0], qcount = 0, 1
+    real = vals[vals > neg_sentinel_np(np.float32) / 2]
+    bigp = np.float32(real.max() - real.min()) + np.float32(61.0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(cols), t(vals), t(queue), qcount, t(prices), t(owner),
+            np.float32(0.375), bigp)
+
+
+@pytest.mark.parametrize("warps", GS_WARPS)
+@pytest.mark.parametrize("case", ["conflicts", "chain", "k52", "k1"])
+def test_gs_kernel_lookahead_cases(dev, case, warps, monkeypatch):
+    """Conflict-heavy, single-chain, two-lane-group and one-slot rows:
+    K3 with each number of bid warps against the twin (all five outputs,
+    prices bit for bit), the counters adding up and the ring histogram
+    equal to the serial run's."""
+    _set_bid_warps(monkeypatch, warps)
+    args = _gs_case(case, dev)
+    max_bids = 20_000
+    got = gs_auction_device(*args, max_bids)
+    want = gs_auction_plain(*args, max_bids)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    serial = PGS.gs_lookahead_mirror(*[a.cpu() if torch.is_tensor(a) else a
+                                       for a in args], max_bids, warps=0)[1]
+    cnt = _check_gs_counters(got, ring=serial["ring"])
+    if case == "chain":
+        assert cnt["single_row_ring"] == int(got[3]) > args[0].shape[0]
+    if case == "k1":
+        assert int(got[3]) == max_bids and int(got[4]) > 0
 
 
 @pytest.mark.parametrize("name", list(PG.PROBES))

@@ -25,6 +25,7 @@ from sslap_tpu.native import auction_gs as native_gs
 from sslap_tpu.ops.gs_kernel import gs_auction_device as pallas_gs
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.ops import gs_auction_device, gs_auction_plain
+from sslap_tpu_torch.ops.gs_kernel import gs_lookahead_mirror, merge_levels
 from sslap_tpu_torch.ops.probe_gs import make_inputs
 from tests.utils import random_sparse_instance
 
@@ -259,3 +260,138 @@ def test_wrapper_dispatch_and_input_checks():
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(RuntimeError, match="unsupported device"):
         gs_auction_device(*meta)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's look-ahead protocol (csrc/gs.cu part B) on the CPU:
+# gs_lookahead_mirror against the twin, bit for bit.
+# ---------------------------------------------------------------------------
+
+def _ell(rng, n, m, K, entries, integer):
+    """ELL rows (the neg sentinel pads) over the columns ``entries(i)``
+    names; float32 values, integer-valued with ``integer``."""
+    cols = np.zeros((n, K), np.int32)
+    vals = np.full((n, K), neg_sentinel_np(np.float32), np.float32)
+    for i in range(n):
+        c = np.unique(np.asarray(entries(i)))[:K]
+        cols[i, :c.shape[0]] = c
+        raw = rng.integers(1, 30, c.shape[0]) if integer else \
+            rng.random(c.shape[0]) * 30
+        vals[i, :c.shape[0]] = -raw.astype(np.float32)
+    real = vals[vals > neg_sentinel_np(np.float32) / 2]
+    bigp = np.float32(real.max() - real.min()) + np.float32(1.0)
+    return cols, vals, bigp
+
+
+def _lookahead_case(case, integer):
+    """(cols, vals, queue, qcount, prices, owner, eps, bigp, max_bids)."""
+    rng = np.random.default_rng({"conflicts": 31, "chain": 32, "cap": 33,
+                                 "wrap": 34, "infeasible": 35}[case])
+    eps = np.float32(1.0 if integer else 0.375)
+    n = m = 32
+    prices = np.zeros(m, np.float32)
+    owner = np.full(m, -1, np.int32)
+    if case == "conflicts":            # every row on 4 of 6 hot columns
+        cols, vals, bigp = _ell(rng, n, m, 5, lambda i: [
+            i, *rng.choice(6, 4, replace=False)], integer)
+        vals[:, :][cols >= 6] -= 40    # its own column is the fallback
+    elif case == "chain":              # one row queued, the rest matched
+        # column 0, the free one, is row 0's alone and its last resort:
+        # the chain runs until row 0 is evicted and prices drive it there
+        cols, vals, bigp = _ell(rng, n, m, 4, lambda i: [
+            i, *rng.integers(1, m, 3)], integer)
+        vals[0, 0] -= 60
+        bigp += 60
+        owner[1:] = np.arange(1, n)
+    elif case == "infeasible":         # 32 rows over 5 columns
+        cols, vals, bigp = _ell(rng, n, m, 3, lambda i: rng.choice(
+            5, 3, replace=False), integer)
+    else:
+        cols, vals, bigp = _ell(rng, n, m, 6, lambda i: [
+            i, *rng.integers(0, m, 5)], integer)
+    queue = np.full(n + 1, -1, np.int32)
+    if case == "chain":
+        queue[0], qcount = 0, 1
+    elif case == "wrap":               # warm start, shuffled, wraps
+        prices = (rng.integers(0, 40, m) * 0.75).astype(np.float32)
+        rows = rng.permutation(n)[:n // 3]
+        owner[cols[rows, 0]] = rows
+        rest = np.setdiff1d(np.arange(n), owner[owner >= 0])
+        qcount = rest.shape[0]
+        queue[:qcount] = rng.permutation(rest)
+    else:
+        queue[:n], qcount = np.arange(n), n
+    max_bids = {"cap": n + 3, "infeasible": 700}.get(case, 10 ** 6)
+    return cols, vals, queue, qcount, prices, owner, eps, bigp, max_bids
+
+
+def _same(got, want):
+    np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("snapshot", ["stalest", "random"])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("case", ["conflicts", "chain", "cap", "wrap",
+                                  "infeasible"])
+def test_lookahead_mirror_matches_twin(case, warps, snapshot, integer):
+    """W bid warps reading stale snapshots, validated and redone in ring
+    order, give the twin's result bit for bit (prices as int32 bits,
+    owner, queue, bids, left), and the counters add up."""
+    cols, vals, queue, qcount, prices, owner, eps, bigp, max_bids = \
+        _lookahead_case(case, integer)
+    args = [_t(cols), _t(vals), _t(queue), qcount, _t(prices), _t(owner),
+            eps, bigp, max_bids]
+    want = gs_auction_plain(*args)
+    got, cnt = gs_lookahead_mirror(*args, warps=warps, snapshot=snapshot,
+                                   seed=warps)
+    _same(got, want)
+    bids, left = int(want[3]), int(want[4])
+    assert cnt["bids"] == bids and cnt["left"] == left
+    assert cnt["speculative"] + cnt["redone"] + cnt["single_row_ring"] \
+        == bids == sum(cnt["ring"].values())
+    serial = gs_lookahead_mirror(*args, warps=0)[1]
+    assert serial["ring"] == cnt["ring"]
+    assert serial["single_row_ring"] == cnt["single_row_ring"] \
+        == cnt["ring"]["1"]
+    if case == "conflicts":
+        assert cnt["redone"] > 0 and cnt["speculative"] > 0
+    elif case == "chain":
+        assert cnt["single_row_ring"] == bids > cols.shape[0]
+    elif case == "cap":
+        assert bids == max_bids and left > 0
+    elif case == "infeasible":
+        assert bids == max_bids and left > 0
+    else:
+        assert left == 0 and bids > queue.shape[0]   # the tail wrapped
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 8, 10, 16, 17, 32, 33, 52])
+def test_lane_merge_depth_matches_twin(K):
+    """The kernel's lane merge (slot k on lane k mod 32, merge_levels(K)
+    butterfly steps) through the mirror with no bid warps, against the
+    twin, with value ties and padding in every row."""
+    rng = np.random.default_rng(40 + K)
+    n = m = 48
+    cols, vals, bigp = _ell(rng, n, m, K, lambda i: [
+        i, *rng.integers(0, m, max(K - 2, 0))], integer=True)
+    assert merge_levels(K) == min(5, int(np.ceil(np.log2(K))))
+    queue = np.full(n + 1, -1, np.int32)
+    queue[:n] = np.arange(n)
+    args = [_t(cols), _t(vals), _t(queue), n, _t(np.zeros(m, np.float32)),
+            _t(np.full(m, -1, np.int32)), np.float32(1.0), bigp, 10 ** 6]
+    want = gs_auction_plain(*args)
+    got, cnt = gs_lookahead_mirror(*args, warps=0)
+    _same(got, want)
+    assert int(want[4]) == 0 and cnt["speculative"] == cnt["redone"] == 0
+
+
+def test_lookahead_mirror_rejects_unknown_snapshot():
+    (cols, vals, queue, n, prices, owner, eps, bigp, max_bids), _ = \
+        make_inputs("gs_small")
+    args = [_t(a) for a in (cols, vals, queue)] + [n] + \
+        [_t(a) for a in (prices, owner)] + [eps, bigp, max_bids]
+    with pytest.raises(ValueError, match="snapshot"):
+        gs_lookahead_mirror(*args, warps=2, snapshot="newest")
