@@ -3,6 +3,7 @@
     python3 chip_smoke.py               # every phase (below)
     python3 chip_smoke.py --k12 LABEL   # K1 and K2's timings alone
     python3 chip_smoke.py --k3 LABEL    # K3's timings on the headline tail
+    python3 chip_smoke.py --probes LABEL  # P6/P9 and P16/P17 timings alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -80,11 +81,19 @@ of which raises on failure (so the exit code is non-zero):
                  sslap_tpu_torch.ops.probe_gs` runs it, launch counts zeroed
                  around it; each probe's kernel against its plain version
                  at the reference's shapes (exact) with the reference's
-                 asserts; P6 (prefetch pump) against P9 (start + wait) over
-                 500,000 copies from a 512 MB table; the ladder kernels
-                 (P16, P17), stages 1-3, at n = m = 1M, K = 10, against the
-                 plain version over 20,000 bids and in closed form over all
-                 1M bids
+                 asserts; P6 (the pump) at n = 0, 1 and 17 against its plain
+                 version and the closed form, and P6 against P9 (start +
+                 wait) over 500,000 copies from a 512 MB table of distinct
+                 rows (entry (r, c) = 131 r + c, made on the card), each
+                 checked in closed form, with P6 and index_select of the
+                 same rows back to back; the ladder kernels (P16, P17),
+                 stages 1-3, at n = m = 1M, K = 10: against the plain
+                 version over 20,000 bids and in closed form over all 1M
+                 bids, then on the two instances whose first columns
+                 repeat (u mod 65,536; three queued rows on one column)
+                 against the plain version over 200,000 bids (three at
+                 stages 1-2 of the second, which has no more) and timed
+                 to 1M bids
  10. batch    -- BASELINE config 3 at full size (benchmarks/run_all.py's
                  instance: 256 x make_sparse(4096, 4096, 48, seed=100 + b),
                  float32, pad_to=52): the dense bid kernel DK
@@ -126,7 +135,11 @@ of the tail, with ms_noprefetch beside, whole_tail_us_per_bid (prefetch on
 and off, and the native forward GS, over the whole tail), bid_warps and
 the counters;
 P1-P17: the reference shapes, P16/P17 at stage 3, with ns/iteration or
-ns/bid of the scaled runs beside), its bound (bound_ms, bound_by,
+ns/bid of the scaled runs beside; P6's rows_500k: its time at scale
+against its byte bound and index_select's; P16/P17's ms_device back to
+back, ns/bid on the conflict instances, the byte and float-chain bounds
+at 1M (two dependent adds a bid, 4 cycles each at the card's maximum SM
+clock) and the share of each reached; P16's counters), its bound (bound_ms, bound_by,
 bound_bytes: each input read once and each output written once on that
 run's data, over 3.35 TB/s, or its operations over 67 TFLOP/s) and the
 time of one PyTorch call computing the same function where there is one
@@ -155,6 +168,14 @@ the root of another tree of this repository (an older commit unpacked with
 git archive) measures that tree's kernels with this code: run the two
 trees in turns (A, B, B, A) in one process sequence on one card.
 
+--probes LABEL runs only phase 9's P6/P9 and P16/P17 measurements (P6 and
+P16/P17 back to back at the reference shapes, with index_select beside
+P6, and both P6's and index_select's kernels' device time per call under
+torch.profiler; P6 at n = 0, 1, 17 and P6/P9 at 500,000 copies; the ladder kernels at
+1M rows, closed form and conflict instances) and prints them as one line
+"PROBES LABEL {...}"; A/B between trees as --k12 (a tree whose
+ladder_inputs has no first= skips the conflict instances).
+
 --k3 LABEL runs only phase 6's K3 measurements (no _scan stubs), plus the
 whole tail at each number of bid warps in K3_SWEEP (through the module
 constant ops.gs_kernel.BID_WARPS), and prints them as one line "K3 LABEL
@@ -166,6 +187,7 @@ K3 that keeps none).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -1237,6 +1259,7 @@ def phase_jacobi():
 PROBE_ITERS = 500_000         # P6 / P9: rows 2i of a [1M, 128] int32 table
 PROBE_B2B = 20                # calls queued back to back (ms_device)
 LADDER_PLAIN_BIDS = 20_000    # the ladder's plain version on a prefix
+LADDER_CONFLICT_BIDS = 200_000  # ... on the conflict instances
 
 
 def _timed(fn, reps=20):
@@ -1346,33 +1369,110 @@ def _probe_against_plain(name, dev):
     return err, k_ms, p_ms, bound, lib_ms, b2b
 
 
+def _distinct_rows(rows, dev):
+    """A [rows, 128] int32 table made on the card, entry (r, c) = 131 r +
+    c: every row sums to a different value."""
+    return (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * 131
+            + torch.arange(PG.LINE, device=dev)).to(torch.int32)
+
+
+def _pump_closed_form(n):
+    """The sum of rows 2i, i < n, of _distinct_rows, wrapped to int32."""
+    return PG._wrap32(131 * 2 * PG.LINE * (n * (n - 1) // 2)
+                      + PG.LINE * (PG.LINE - 1) // 2 * n)
+
+
 def _pump_against_start_wait(dev):
-    """P6 (prefetch pump) and P9 (start + wait) over PROBE_ITERS 2-row
-    copies from a 512 MB table (~10x the L2), turn about; ns/iteration."""
-    hbm = torch.ones(2 * PROBE_ITERS, PG.LINE, dtype=torch.int32,
-                     device=dev)
+    """P6 (the pump) at n = 0, 1 and 17 against its plain version and the
+    closed form; then P6 and P9 (start + wait) over PROBE_ITERS 2-row
+    copies from a 512 MB table (~10x the L2) of distinct rows, turn about,
+    each checked in closed form; P6 and index_select of the same rows back
+    to back.  Returns ns/iteration per probe and P6's and index_select's
+    ms at scale."""
+    for n in (0, 1, 17):
+        x = _distinct_rows(2 * n + 2, dev)
+        got = PG.while_double_buffer((n,), x)[0]
+        want = PG.while_double_buffer.plain((n,), x)[0]
+        if not got.tolist() == want.tolist() == [_pump_closed_form(n)]:
+            raise AssertionError(f"P6 at n = {n}: {got.tolist()} != "
+                                 f"{want.tolist()}")
+    hbm = _distinct_rows(2 * PROBE_ITERS, dev)
+    closed = _pump_closed_form(PROBE_ITERS)
     ns = {}
     for name in ("while_double_buffer", "sem_2d_dynamic", "sem_2d_dynamic",
                  "while_double_buffer"):
         out, ms = _events_ms(lambda: PG.PROBES[name]((PROBE_ITERS,), hbm))
-        if int(out[0][0]) != PROBE_ITERS * PG.LINE:
-            raise AssertionError(f"{name} at scale: acc {int(out[0][0])}")
+        if int(out[0][0]) != closed:
+            raise AssertionError(f"{name} at scale: acc {int(out[0][0])} != "
+                                 f"{closed}")
         ns.setdefault(name, []).append(1e6 * ms / PROBE_ITERS)
-    log(f"[9 probes] {PROBE_ITERS} copies of 2 rows from a "
-        f"{2 * PROBE_ITERS} x 128 int32 table: P6 pump "
+    rows = torch.arange(0, 2 * PROBE_ITERS, 2, device=dev)
+    pump = lambda: PG.while_double_buffer((PROBE_ITERS,), hbm)  # noqa: E731
+    lib = lambda: torch.index_select(hbm, 0, rows)  # noqa: E731
+    lib()
+    at_scale = dict(ms=_timed(pump, reps=5)[1],
+                    ms_device=_device_ms(tuple, pump, 10),
+                    library_ms=_timed(lib, reps=5)[1],
+                    library_ms_device=_device_ms(tuple, lib, 10),
+                    bound_ms=1e3 * PROBE_ITERS * PG.LINE * 4 / HBM_BYTES_PER_S)
+    del hbm
+    log(f"[9 probes] P6 == plain == closed form at n = 0, 1, 17; "
+        f"{PROBE_ITERS} copies of 2 rows from a {2 * PROBE_ITERS} x 128 "
+        f"int32 table of distinct rows: P6 pump "
         f"{ns['while_double_buffer']} ns/iter, P9 start+wait "
-        f"{ns['sem_2d_dynamic']} ns/iter; acc = N * 128")
-    return ns
+        f"{ns['sem_2d_dynamic']} ns/iter; closed form holds; P6 rows 2i "
+        f"{at_scale}")
+    return ns, at_scale
+
+
+def _ladder_check(kernel, x, kw, what):
+    got, want = kernel(*x, **kw), kernel.plain(*x, **kw)
+    torch.cuda.synchronize()
+    if not all(_same_bits(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{kernel.name} {what}: kernel != plain")
+    return int(got[-2][0])
+
+
+def _ladder_conflicts(dev, kernel, n, K):
+    """P16/P17, stages 1-3, on the two instances whose first columns
+    repeat (ladder_inputs first="mod": u mod 65,536; "three": three queued
+    rows on one column): kernel == plain over LADDER_CONFLICT_BIDS bids (or
+    all the stage has: three bids at stages 1-2 of "three"), then ns/bid
+    over max_bids = n.  {instance: {stage: ns/bid}}, and P16's counters."""
+    out, counters = {}, {}
+    for first in ("mod", "three"):
+        for stage in (1, 2, 3):
+            kw = dict(K=K, stage=stage)
+            args, _ = PG.ladder_inputs(n, n, K, n + 1, unified=kernel is
+                                       PG.gs_ladder_uni, stage=stage,
+                                       max_bids=LADDER_CONFLICT_BIDS,
+                                       first=first)
+            x = PG.to_device(args, dev)
+            checked = _ladder_check(kernel, x, kw, f"{first} stage {stage}")
+            x = (x[0][:1] + (n,) + x[0][2:], *x[1:])
+            res, ms = _events_ms(lambda: kernel(*x, **kw))
+            bids = int(res[-2][0])
+            # a run of three bids times the launch, not a bid: none
+            per = 1e6 * ms / bids if bids >= LADDER_PLAIN_BIDS else None
+            out.setdefault(first, {})[str(stage)] = per
+            if kernel is PG.gs_ladder_uni:
+                counters[f"{first} {stage}"] = PG.ladder_counters()
+            log(f"[9 probes] {kernel.name} first={first} stage {stage}: "
+                f"== plain over {checked} bids; {ms:.3f} ms over {bids} "
+                f"bids ({per} ns/bid)")
+    return out, counters
 
 
 def _ladder_at_scale(dev, n=N_HEAD, K=K_HEAD):
     """P16/P17, stages 1-3, at the headline's shape: rows 0..n-1 queued
     ascending, cols[:, 0] = row id (no evictions), random prices p0.
     Kernel == plain over the first LADDER_PLAIN_BIDS bids; the full run
-    checked in closed form.  Returns ns/bid per (kernel name, stage)."""
+    checked in closed form; then the conflict instances (a tree whose
+    ladder_inputs has no ``first`` skips them).  Returns ({(kernel name,
+    stage): ns/bid}, {kernel name: conflict ns/bid}, P16's counters)."""
     p0 = (np.random.default_rng(4).random(n) * 10).astype(np.float32)
     p0_d = torch.from_numpy(p0).to(dev)
-    ns = {}
+    ns, conflicts, counters = {}, {}, {}
     for unified in (True, False):
         kernel = PG.gs_ladder_uni if unified else PG.gs_ladder
         args, _ = PG.ladder_inputs(n, n, K, n + 1, unified=unified, stage=1,
@@ -1384,16 +1484,14 @@ def _ladder_at_scale(dev, n=N_HEAD, K=K_HEAD):
         prefix = ((n, LADDER_PLAIN_BIDS, n + 1), *x[1:])
         for stage in (1, 2, 3):
             kw = dict(K=K, stage=stage)
-            got, want = kernel(*prefix, **kw), kernel.plain(*prefix, **kw)
-            torch.cuda.synchronize()
-            if not all(_same_bits(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f"{kernel.name} stage {stage}: kernel "
-                                     f"!= plain over {LADDER_PLAIN_BIDS} "
-                                     f"bids")
+            _ladder_check(kernel, prefix, kw,
+                          f"stage {stage} over {LADDER_PLAIN_BIDS} bids")
             out, ms = _events_ms(lambda: kernel(*x, **kw))
             if unified:
                 q, p, o = out[0][0], out[0][1].view(torch.float32), out[0][2]
                 q0 = x[3][0]
+                counters[f"arange {stage}"] = getattr(
+                    PG, "ladder_counters", lambda: None)()
             else:
                 q, p, o = (t.reshape(-1) for t in out[:3])
                 q0 = x[3].reshape(-1)
@@ -1412,7 +1510,98 @@ def _ladder_at_scale(dev, n=N_HEAD, K=K_HEAD):
             log(f"[9 probes] {kernel.name} stage {stage}, n = m = {n}, K = "
                 f"{K}: {ns[(kernel.name, stage)]:.1f} ns/bid ({ms:.1f} ms); "
                 f"== plain over {LADDER_PLAIN_BIDS} bids, closed form holds")
-    return ns
+        del x, prefix
+        if "first" in inspect.signature(PG.ladder_inputs).parameters:
+            conflicts[kernel.name], more = _ladder_conflicts(dev, kernel, n,
+                                                             K)
+            counters.update(more)
+    return ns, conflicts, counters
+
+
+def _sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(smi.stdout.split()[0])
+
+
+def _ladder_bounds(n, ns_per_bid):
+    """P16/P17's two bounds at n bids: bytes (20 a bid, each read once,
+    and the tables written) over the memory rate, and the float32 chain,
+    two dependent adds a bid at 4 cycles each at the card's maximum SM
+    clock; the share of each a run at ns_per_bid reaches."""
+    chain_ns = 8e3 / _sm_clock_mhz()
+    bytes_ms = 1e3 * (20 * n + 4 * 3 * n + 8) / HBM_BYTES_PER_S
+    run_ms = 1e-6 * ns_per_bid * n
+    return dict(bytes_bound_ms=bytes_ms, chain_bound_ms=1e-6 * chain_ns * n,
+                bytes_share=bytes_ms / run_ms,
+                chain_share=1e-6 * chain_ns * n / run_ms)
+
+
+def _ladder_device_ms(name, dev):
+    """Device time per launch of probe ``name``'s ladder kernel (P16 or
+    P17, the reference shape), PROBE_B2B launches back to back: the
+    kernel's launch alone (_ladder_cuda), since the wrapper's index checks
+    read the tables back (each a synchronisation); every launch gets its
+    own copy of the state tables, made before the timed window."""
+    args, kw = PG.make_inputs(name)
+    x = PG.to_device(args, dev)
+    kernel = PG.PROBES[name]
+    unified = kernel is PG.gs_ladder_uni
+    counts = PG._ladder_args(x[0], x[1], x[2], *PG._views(unified, x[3:]),
+                             kw["K"], kw["stage"])
+
+    def run(*tables):
+        PG._ladder_cuda(kw["stage"], unified, counts, x[1], x[2],
+                        *PG._views(unified, tables), kw["K"])
+    return _device_ms(lambda: [t.clone() for t in x[3:]], run, PROBE_B2B)
+
+
+def _kernel_us(fn, reps=PROBE_B2B):
+    """torch.profiler over reps calls of fn: each kernel's device time per
+    call, us, by name (the split of a back-to-back time into kernel and
+    launch gap)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / reps
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def probe_timings():
+    """Phase 9's P6/P9 and P16/P17 measurements: P6 back to back at the
+    probe's shape beside index_select, P6 and P9 at scale, P16 and P17
+    back to back at the reference shape and at n = m = 1M (closed form and
+    conflict instances)."""
+    dev = torch.device(DEVICE)
+    out = {}
+    args, _ = PG.make_inputs("while_double_buffer")
+    x = PG.to_device(args, dev)
+    rows = _probe_rows("while_double_buffer", x)
+    out["while_double_buffer"] = dict(
+        ms_device=_device_ms(tuple, lambda: PG.while_double_buffer(*x),
+                             PROBE_B2B),
+        library_ms_device=_probe_library_ms("while_double_buffer", x)[1],
+        kernel_us=_kernel_us(lambda: PG.while_double_buffer(*x)),
+        library_kernel_us=_kernel_us(
+            lambda: torch.index_select(x[1], 0, rows)))
+    for name in ("gs_uni3", "gs_ladder3"):
+        out[name] = dict(ms_device=_ladder_device_ms(name, dev))
+    out["pump"], out["pump_500k"] = _pump_against_start_wait(dev)
+    ns, conflicts, counters = _ladder_at_scale(dev)
+    out["ladder_ns_per_bid_1M"] = {f"{k} {s}": v for (k, s), v in ns.items()}
+    out["ladder_conflicts_ns_per_bid"] = conflicts
+    out["ladder_counters"] = counters
+    out["ladder_bounds_stage3"] = {k: _ladder_bounds(N_HEAD, ns[(k, 3)])
+                                   for k in ("gs_ladder_uni", "gs_ladder")}
+    return out
 
 
 def phase_probes():
@@ -1430,8 +1619,8 @@ def phase_probes():
     if min(launches.values()) <= 0:
         raise AssertionError(f"a probe kernel was not launched: {launches}")
     per_probe = {name: _probe_against_plain(name, dev) for name in PG.ORDER}
-    pump = _pump_against_start_wait(dev)
-    ladder = _ladder_at_scale(dev)
+    pump, pump_500k = _pump_against_start_wait(dev)
+    ladder, conflicts, counters = _ladder_at_scale(dev)
     entries = []
     for key, kernel in PG.KERNELS.items():
         names = [nm for nm, k in PG.PROBES.items() if k is kernel]
@@ -1446,9 +1635,18 @@ def phase_probes():
             entry["library_ms_device"] = b2b["library"]
         if kernel.name in pump:
             entry["ns_per_iter_500k"] = pump[kernel.name]
+        if kernel is PG.while_double_buffer:
+            entry["rows_500k"] = pump_500k
         if kernel in (PG.gs_ladder_uni, PG.gs_ladder):
+            entry["ms_device"] = _ladder_device_ms(names[-1], dev)
             entry["ns_per_bid_1M"] = {str(s): ladder[(kernel.name, s)]
                                       for s in (1, 2, 3)}
+            entry["conflicts_ns_per_bid_1M"] = conflicts.get(kernel.name)
+            entry["bounds_1M_stage3"] = _ladder_bounds(
+                N_HEAD, ladder[(kernel.name, 3)])
+        if kernel is PG.gs_ladder_uni:
+            entry["counters_1M"] = counters
+            entry["gather_warps"] = PG.GATHER_WARPS
         entries.append(entry)
     return entries
 
@@ -2041,8 +2239,21 @@ def k3(label: str) -> None:
         flush=True)
 
 
+def probes(label: str) -> None:
+    """--probes LABEL: phase 9's P6/P9 and P16/P17 measurements alone
+    (probe_timings), each kernel checked on the way, printed as one line
+    "PROBES LABEL {...}" (numbers unrounded)."""
+    phase_device()
+    phase_build()
+    print("PROBES", label, json.dumps(
+        {"tree": os.path.dirname(os.path.abspath(__file__)),
+         **probe_timings()}), flush=True)
+
+
 if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] == "--k12":
+    if len(sys.argv) > 1 and sys.argv[1] == "--probes":
+        probes(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--k12":
         k12(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--k3":
         k3(sys.argv[2] if len(sys.argv) > 2 else "tree")

@@ -105,11 +105,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # P6-P15: variant, hbm, vbm, q, pt, ot, n, out, stream
     lib.sslap_probe_queue.restype = c_int
     lib.sslap_probe_queue.argtypes = [c_int, p, p, p, p, p, i32, p, p]
+    # P6: hbm, n, blocks, out, stream
+    lib.sslap_probe_pump.restype = c_int
+    lib.sslap_probe_pump.argtypes = [p, i32, c_int, p, p]
     # P16-P17: stage, unified, clines, vlines, K, q, p, o, qcount,
-    # max_bids, cap, stats, acc, stream
+    # max_bids, cap, gather_warps, stats, acc, counters, stream
     lib.sslap_probe_ladder.restype = c_int
     lib.sslap_probe_ladder.argtypes = [c_int, c_int, p, p, i32, p, p, p, i64,
-                                       i64, i64, p, p, p]
+                                       i64, i64, c_int, p, p, p, p]
     lib.sslap_smem_optin.restype = c_int
     lib.sslap_smem_optin.argtypes = [c_int]
     lib.sslap_error_string.restype = ctypes.c_char_p

@@ -72,12 +72,11 @@
 // they can start only 1-2 positions ahead) and ~230 storing and
 // publishing, beside its own instruction latency.  Part A alone (W = 0)
 // runs at ~1.0 us/bid, slower than the one-warp kernel's 0.82.
-#include <cuda/atomic>
-
 #include <algorithm>
 #include <climits>
 
 #include "common.cuh"
+#include "sync.cuh"
 
 namespace {
 
@@ -88,31 +87,13 @@ constexpr int kNone = 0x7FFFFFFF;   // no slot seen yet (sorts after all)
 constexpr int kStampBits = 12;      // ops/gs_kernel.py: STAMP_BITS
 constexpr int kStamps = 1 << kStampBits;
 constexpr int kMaxBidWarps = 31;
-// A warp that waits this long with no commit made traps (the launch then
-// fails) instead of hanging the card.
-constexpr unsigned long long kStallNs = 10'000'000'000ull;
 enum Scan { kFullScan = 0, kConst = 1, kNoPrices = 2 };
 
-template <class T>
-__device__ __forceinline__ T ld_rlx(T* p) {
-  return cuda::atomic_ref<T, cuda::thread_scope_block>(*p).load(
-      cuda::memory_order_relaxed);
-}
-template <class T>
-__device__ __forceinline__ T ld_acq(T* p) {
-  return cuda::atomic_ref<T, cuda::thread_scope_block>(*p).load(
-      cuda::memory_order_acquire);
-}
-template <class T>
-__device__ __forceinline__ void st_rlx(T* p, T v) {
-  cuda::atomic_ref<T, cuda::thread_scope_block>(*p).store(
-      v, cuda::memory_order_relaxed);
-}
-template <class T>
-__device__ __forceinline__ void st_rel(T* p, T v) {
-  cuda::atomic_ref<T, cuda::thread_scope_block>(*p).store(
-      v, cuda::memory_order_release);
-}
+using sslap::ld_acq;
+using sslap::ld_rlx;
+using sslap::st_rel;
+using sslap::st_rlx;
+using sslap::Watchdog;
 
 __device__ __forceinline__ u64 pack(float price, int32_t owner) {
   return static_cast<u64>(__float_as_uint(price)) |
@@ -128,25 +109,6 @@ __device__ __forceinline__ int32_t owner_of(u64 e) {
 __device__ __forceinline__ float fmax_sel(float a, float b) {
   return b > a ? b : a;
 }
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Counts a wait loop's turns; every 1024th reads the clock, and traps once
-// kStallNs have passed since the first reading.
-struct Watchdog {
-  unsigned spins = 0;
-  unsigned long long since = 0;
-  __device__ __forceinline__ void tick() {
-    if ((++spins & 1023u) != 0) return;
-    const unsigned long long now = globaltimer();
-    if (since == 0) since = now;
-    else if (now - since > kStallNs) __trap();
-  }
-};
 
 // The warp's minimum of a 64-bit value whose lanes differ by little.
 __device__ __forceinline__ long long warp_min(long long x) {

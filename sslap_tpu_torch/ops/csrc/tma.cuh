@@ -36,6 +36,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                : "memory");
 }
 
+// A plain arrival (a consumer's release of a ring slot).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // Global -> shared, `bytes` a multiple of 16, both addresses 16-aligned.
 __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
                                          uint32_t bytes, uint64_t* bar) {

@@ -13,10 +13,12 @@ stages.  Here each is a wrapper beside its plain PyTorch version:
     P6-P15  while_double_buffer, while_qtable_dma, while_qtable_dma_store,
             sem_2d_dynamic, qdma_dual, qdma_alias3, qdma_alias2,
             qdma_store_datadep, qdma_store_bitcast, qdma_store_via_dma
-            -> csrc/probe_queue.cu  (one loop kernel, a variant each)
+            -> csrc/probe_queue.cu  (P7-P15 one loop kernel, a variant
+               each; P6 a TMA ring spread over the grid)
     P16     gs_ladder_uni (probes gs_uni1-3)
     P17     gs_ladder (probes gs_ladder1-3)
-            -> csrc/probe_ladder.cu (stage 1-3 x table layout)
+            -> csrc/probe_ladder.cu (P16 look-ahead gather warps and an
+               in-order commit warp; P17 one thread; stages 1-3)
 
 and the probes ``gs_small``, ``gs_small_noprefetch``,
 ``gs_small_constscan`` and ``gs_small_noprices`` drive K3 itself
@@ -27,7 +29,12 @@ returns, in its shapes and dtypes, aliased tables as new tensors; the
 ladder kernels also return ``acc`` (f32 [1]).  CPU tensors run the plain
 version, CUDA tensors launch the kernel or raise; ``.launches`` counts
 launches.  The ladder kernels also take any n, m, K and cap
-(``ladder_inputs``), so they run at the headline's scale.
+(``ladder_inputs``, whose ``first=`` also makes instances whose first
+columns repeat), so they run at the headline's scale.  ``pump_mirror``
+and ``ladder_lookahead_mirror`` replay the P6 and P16 kernels' protocols
+on the CPU (their split over blocks; stale look-ahead snapshots, stamp
+validation and passes), for the tests to hold against the plain
+versions; ``ladder_counters()`` reads P16's last launch's counters.
 
     python -m sslap_tpu_torch.ops.probe_gs [name]
 
@@ -50,6 +57,16 @@ from sslap_tpu_torch.ops import _build
 from sslap_tpu_torch.ops.gs_kernel import gs_auction_device, gs_auction_plain
 
 LINE = 128
+# P6 (csrc/probe_queue.cu): iterations a block takes at least, and the
+# kernel's summing warps (kPumpConsumers)
+PUMP_CHUNK = 64
+PUMP_CONSUMERS = 4
+# P16 (csrc/probe_ladder.cu): gather warps beside the commit warp (1-8),
+# the kernel's stamp table (kStampBits) and its ring of recent pushes
+# (kRecent)
+GATHER_WARPS = 4
+STAMP_BITS = 12
+RECENT = 64
 _QUEUE_VARIANTS = {"while_double_buffer": 6, "while_qtable_dma": 7,
                    "while_qtable_dma_store": 8, "sem_2d_dynamic": 9,
                    "qdma_dual": 10, "qdma_alias3": 11, "qdma_alias2": 12,
@@ -205,7 +222,7 @@ def _queue_args(variant, s, hbm, q, vbm, pt, ot):
     _need(hbm.ndim == 2 and hbm.shape[1] == LINE and n >= 0,
           "queue probe: need [rows, 128] int32 rows and n >= 0")
     rows = hbm.shape[0]
-    ids = torch.arange(n)[-1:]               # P6, P9: rows 2i, i < n
+    ids = torch.arange(max(n - 1, 0), n)     # P6, P9: rows 2i, i < n
     if variant not in (6, 9):
         q = _table(q, torch.int32, "queue").clone()
         _need(q.numel() >= LINE and q.numel() >= n,
@@ -258,6 +275,32 @@ def _queue_plain(variant, n, hbm, q, vbm, pt, ot):
     return _i32(_wrap32(acc), device=hbm.device)
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pump_blocks(n: int, sms: int) -> int:
+    """P6's grid: a block per PUMP_CHUNK iterations, at most one per SM,
+    at least one."""
+    return max(1, min(sms, -(-n // PUMP_CHUNK)))
+
+
+def pump_mirror(hbm, n: int, blocks: int):
+    """P6's kernel (csrc/probe_queue.cu, pump_kernel) on the CPU: block b
+    takes iterations [n b / B, n (b + 1) / B), its consumer warp w the k-th
+    of them for k = w mod PUMP_CONSUMERS; each sums its rows 2i into a
+    uint32 partial, the block adds its warps' partials, and out adds the
+    blocks' (all wrapping).  Returns int32 [1], as the probe."""
+    rows = np.asarray(hbm).reshape(-1, LINE)[0:2 * n:2].view(np.uint32)
+    total = np.uint32(0)
+    with np.errstate(over="ignore"):
+        for b in range(blocks):
+            lo, hi = n * b // blocks, n * (b + 1) // blocks
+            for w in range(PUMP_CONSUMERS):
+                total += rows[lo + w:hi:PUMP_CONSUMERS].sum(dtype=np.uint32)
+    return torch.tensor([total.view(np.int32)], dtype=torch.int32)
+
+
 def _queue_outputs(variant, q, pt, ot, out):
     if variant in (6, 9):
         return (out,)
@@ -285,9 +328,17 @@ def _queue_probe(name, line, order):
 
     def cuda(s, *tables):
         n, hbm, q, vbm, pt, ot = split(s, tables)
+        lib = _build.load()
+        if variant == 6:
+            blocks = pump_blocks(n, _sms(hbm.device))
+            out = (torch.zeros if blocks > 1 else torch.empty)(
+                1, dtype=torch.int32, device=hbm.device)
+            _build.check(lib.sslap_probe_pump(
+                hbm.data_ptr(), n, blocks, out.data_ptr(), _stream(hbm)),
+                name)
+            return (out,)
         out = torch.empty(1, dtype=torch.int32, device=hbm.device)
         ptr = (lambda t: 0 if t is None else t.data_ptr())  # noqa: E731
-        lib = _build.load()
         _build.check(lib.sslap_probe_queue(
             variant, hbm.data_ptr(), ptr(vbm), ptr(q), ptr(pt), ptr(ot), n,
             out.data_ptr(), _stream(hbm)), name)
@@ -373,19 +424,136 @@ def _ladder_plain(stage, counts, clines, vlines, q, p, o, K):
     return np.array([bids, left], np.int32), np.array([acc], np.float32)
 
 
+def ladder_lookahead_mirror(stage, counts, clines, vlines, q, p, o, K, *,
+                            gather_warps=GATHER_WARPS, stamp_bits=STAMP_BITS,
+                            snapshot="stalest", seed=0):
+    """P16's look-ahead protocol (csrc/probe_ladder.cu, lookahead_kernel)
+    on the CPU: ``_ladder_plain``'s arguments (q, p, o numpy arrays,
+    modified in place) and results, plus the kernel's counters.
+
+    Positions t are committed in ring order, in passes of up to 32.  The
+    gather lane of t read queue[t], the row's first entry and the column's
+    price and owner as they stood after c0 commits, c0 in [max(0, t - S +
+    1), t0] with S = 64 G (its slot is free only then) and t0 the pass's
+    first position (the lane published before the pass): the stalest allowed
+    (``snapshot="stalest"``, passes of 32), or drawn from ``seed``
+    (``"random"``, with passes of random length, and a quarter of the
+    positions read by the commit warp itself, a pass of one, as when no
+    lane has claimed one).  A pass ends before a position whose column an
+    earlier position of the pass takes.  A lane's values are re-read when a
+    commit before the pass, in [c0, t), stamped its column's hash
+    (``stamp_bits`` bits; a small table forces collisions); the pass's own
+    stamps land at its end.  A self-read row of a recent push comes from
+    the ring of RECENT pushes, as in the kernel."""
+    if snapshot not in ("stalest", "random"):
+        raise ValueError(f"snapshot must be 'stalest' or 'random', got "
+                         f"{snapshot!r}")
+    qcount, max_bids, cap = counts
+    c = clines.cpu().numpy().reshape(-1)
+    v = vlines.cpu().numpy().reshape(-1)
+    zero, half = np.float32(0), np.float32(0.5)
+    rng = np.random.default_rng(seed)
+    S = 64 * gather_warps
+    mask = (1 << stamp_bits) - 1
+    stamps = np.full(mask + 1, -1, np.int64)
+    pending = []                 # the open pass's stamps: (hash, commit)
+    taken = set()                # the open pass's columns
+    room = start = 0             # the open pass: room left, first position
+    recent = np.zeros(RECENT, np.int64)
+    log = []                     # commit t: (j, price bits, owner before it)
+    count = dict(from_lane=0, stale=0, self=0, passes=0)
+    acc, t, tail = zero, 0, qcount
+
+    def close():                 # the pass's stamps land at its end
+        for hj, tt in pending:
+            stamps[hj] = tt
+        pending.clear()
+        taken.clear()
+        count["passes"] += 1
+
+    while t != tail and t < max_bids:
+        self_read = snapshot == "random" and rng.random() < 0.25
+        u = int(recent[t % RECENT] if self_read and t >= qcount
+                and tail - t <= RECENT else q[t % cap])
+        j = int(c[u * K])
+        if taken and (self_read or room == 0 or j in taken):
+            close()
+        pk, own = p[j], o[j]
+        if self_read:
+            count["self"] += 1
+            room = 0
+        else:
+            if not taken:
+                room = 32 if snapshot == "stalest" else int(
+                    rng.integers(1, 33))
+                start = t
+            # the lane published before the pass began: c0 <= its start
+            lo = max(0, t - S + 1)
+            c0 = lo if snapshot == "stalest" else int(
+                rng.integers(lo, start + 1))
+            for jj, old_p, old_o in reversed(log[c0:]):
+                if jj == j:      # the column as it stood after c0 commits
+                    pk, own = old_p, old_o
+            count["from_lane"] += 1
+            if stage >= 2 and stamps[j & mask] >= c0:
+                pk, own = p[j], o[j]
+                count["stale"] += 1
+            room -= 1
+        taken.add(j)
+        pk = pk + zero
+        acc = (acc + pk) + (v[u * K] + zero)
+        if stage >= 3 and own >= 0:
+            q[tail % cap] = own
+            recent[tail % RECENT] = own
+            tail += 1
+        log.append((j, p[j], o[j]))
+        if stage >= 2:
+            p[j] = pk + half
+            o[j] = u
+            pending.append((j & mask, t))
+        if self_read:            # a pass of one
+            close()
+        t += 1
+    if taken:
+        close()
+    return (np.array([t, tail - t], np.int32), np.array([acc], np.float32),
+            count)
+
+
+def ladder_counters():
+    """P16's last launch: bids taken from a gather lane's slot, of those
+    re-read as stale, bids the commit warp read itself, its passes (one
+    release fence each), and its clock64 cycles waiting for a lane's slot
+    and in all; None before the first launch.  Synchronises."""
+    c = gs_ladder_uni.counters
+    return None if c is None else dict(zip(
+        ("from_lane", "stale", "self", "passes", "wait_cycles", "cycles"),
+        c.tolist()))
+
+
 def _ladder_cuda(stage, unified, counts, clines, vlines, q, p, o, K):
+    """P16: the look-ahead kernel with GATHER_WARPS gather warps; P17: the
+    serial kernel (its row window in shared memory).  Returns stats, acc
+    and P16's counters (int64 [6], else None)."""
     qcount, max_bids, cap = counts
     dev = clines.device
-    _build.check_smem(8 * _window(K), dev, f"gs_ladder at K = {K}")
+    lib = _build.load()
+    if unified:
+        _need(1 <= GATHER_WARPS <= 8, f"gs_ladder_uni: GATHER_WARPS = "
+              f"{GATHER_WARPS} outside 1-8")
+        counters = torch.empty(6, dtype=torch.int64, device=dev)
+    else:
+        _build.check_smem(8 * _window(K), dev, f"gs_ladder at K = {K}")
+        counters = None
     stats = torch.empty(2, dtype=torch.int32, device=dev)
     acc = torch.empty(1, dtype=torch.float32, device=dev)
-    lib = _build.load()
     _build.check(lib.sslap_probe_ladder(
         stage, int(unified), clines.data_ptr(), vlines.data_ptr(), K,
         q.data_ptr(), p.data_ptr(), o.data_ptr(), qcount, max_bids, cap,
-        stats.data_ptr(), acc.data_ptr(), _stream(clines)),
+        GATHER_WARPS, stats.data_ptr(), acc.data_ptr(),
+        0 if counters is None else counters.data_ptr(), _stream(clines)),
         "gs_ladder_uni" if unified else "gs_ladder")
-    return stats, acc
+    return stats, acc, counters
 
 
 def _copies(unified, tables):
@@ -426,10 +594,13 @@ def _ladder_probe(name, line, unified):
         tables = _copies(unified, tables)
         q, p, o = _views(unified, tables)
         counts = _ladder_args(counts, clines, vlines, q, p, o, K, stage)
-        return (*tables, *_ladder_cuda(stage, unified, counts, clines,
-                                       vlines, q, p, o, K))
+        stats, acc, kernel.counters = _ladder_cuda(
+            stage, unified, counts, clines, vlines, q, p, o, K)
+        return (*tables, stats, acc)
 
-    return ProbeKernel(name, line, "probe_ladder.cu", plain, cuda)
+    kernel = ProbeKernel(name, line, "probe_ladder.cu", plain, cuda)
+    kernel.counters = None        # P16: its last launch's, on the device
+    return kernel
 
 
 gs_ladder_uni = _ladder_probe("gs_ladder_uni", 838, unified=True)
@@ -456,15 +627,29 @@ def _row_index_table():
 
 
 def ladder_inputs(n, m, K, cap, *, unified, stage, max_bids=10 ** 5,
-                  prices=None):
+                  prices=None, first="arange", first_mod=65_536):
     """The ladder probes' construction (probe_mosaic_gs.py:945-958,
     1097-1108) at any size: rng 3; cols sorted, then ``cols[:, 0] =
     arange(n)`` (needs m >= n); vals in [0, 10); line-packed with NL =
     (K + 254) // 128 spare lines; rows 0..n-1 queued; prices 0 (or
-    ``prices``), owner -1; tables 128-wide rows."""
+    ``prices``), owner -1; tables 128-wide rows.
+
+    ``first`` sets the rows' first columns, where the bids go: "arange"
+    (the probe's; no column repeats, nothing is evicted), "mod" (``u mod
+    first_mod``: each column hit ~n / first_mod times, and at stage 3 every
+    bid after the first ``first_mod`` evicts, so the ring stays long) or
+    "three" (rows 0-2 queued alone, all on column 0: at stage 3 a ring of
+    two rows, each bid evicting the previous bidder, until ``max_bids``)."""
+    if first not in ("arange", "mod", "three"):
+        raise ValueError(f"first must be 'arange', 'mod' or 'three', got "
+                         f"{first!r}")
     rng = np.random.default_rng(3)
     cols = np.sort(rng.integers(0, m, (n, K)), axis=1).astype(np.int32)
-    cols[:, 0] = np.arange(n)
+    cols[:, 0] = np.arange(n) % first_mod if first == "mod" else np.arange(n)
+    queued = n
+    if first == "three":
+        cols[:3, 0] = 0
+        queued = 3
     vals = (rng.random((n, K)) * 10).astype(np.float32)
     NL = (K + 2 * (LINE - 1)) // LINE
     flatc = np.zeros(((n * K) // LINE + NL) * LINE, np.int32)
@@ -472,18 +657,18 @@ def ladder_inputs(n, m, K, cap, *, unified, stage, max_bids=10 ** 5,
     flatc[:n * K] = cols.reshape(-1)
     flatv[:n * K] = vals.reshape(-1)
     up = lambda k: -(-k // LINE) * LINE  # noqa: E731
-    counts = (n, max_bids, cap)
+    counts = (queued, max_bids, cap)
     p0 = np.zeros(m, np.float32) if prices is None else prices
     lines = (flatc.reshape(-1, LINE), flatv.reshape(-1, LINE))
     if unified:
         W = up(max(cap, m))
         state = np.zeros((3, W), np.int32)
-        state[0, :n] = np.arange(n)
+        state[0, :queued] = np.arange(queued)
         state[1, :m] = p0.view(np.int32)
         state[2] = -1
         return (counts, *lines, state), dict(K=K, stage=stage)
     q = np.zeros(up(cap), np.int32)
-    q[:n] = np.arange(n)
+    q[:queued] = np.arange(queued)
     p = np.zeros(up(m), np.float32)
     p[:m] = p0
     o = np.full(up(m), -1, np.int32)

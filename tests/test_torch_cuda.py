@@ -426,6 +426,72 @@ def test_ladder_kernels_at_scale(dev, stage, unified):
     assert got[-2].tolist() == [n, 0]
 
 
+def _distinct_rows(rows, dev):
+    """A [rows, 128] int32 table with entry (r, c) = 131 r + c, so a wrong
+    row changes the sum."""
+    return (torch.arange(rows, dtype=torch.int64, device=dev)[:, None] * 131
+            + torch.arange(PG.LINE, device=dev)).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 16, 17, 1000, 20_000])
+def test_pump_kernel_matches_plain(dev, n):
+    """P6 over its grid (one block up to 64 iterations, then one per 64,
+    at most one per SM), distinct row values: kernel == plain version ==
+    the closed form sum of rows 2i, wrapped to int32."""
+    hbm = _distinct_rows(2 * n + 2, dev)
+    got = PG.while_double_buffer((n,), hbm)[0]
+    want = PG.while_double_buffer.plain((n,), hbm)[0]
+    torch.cuda.synchronize()
+    closed = (131 * 2 * PG.LINE * (n * (n - 1) // 2)
+              + (PG.LINE * (PG.LINE - 1) // 2) * n)
+    assert got.tolist() == want.tolist() == [PG._wrap32(closed)]
+
+
+@pytest.mark.parametrize("unified", [True, False])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 17])
+def test_ladder_kernels_at_small_sizes(dev, n, stage, unified):
+    args, kw = PG.ladder_inputs(n, max(n, 1), 10, n + 1, unified=unified,
+                                stage=stage)
+    kernel = PG.gs_ladder_uni if unified else PG.gs_ladder
+    x = PG.to_device(args, dev)
+    got, want = kernel(*x, **kw), kernel.plain(*x, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert got[-2].tolist() == [n, 0]
+
+
+@pytest.mark.parametrize("first", ["mod", "three"])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+@pytest.mark.parametrize("unified,warps", [(True, 1), (True, 2), (True, 4),
+                                           (True, 8), (False, None)])
+def test_ladder_kernels_on_conflict_instances(dev, monkeypatch, unified,
+                                              warps, stage, first):
+    """Repeated first columns (u mod 1024 over 20,000 rows; three queued
+    rows on one column) at stage 3 run to max_bids = 60,000 with evictions
+    on nearly every bid: kernel == plain version, P16 at every gather-warp
+    count (P17 has none); P16's counters add up to the bids."""
+    if warps is not None:
+        monkeypatch.setattr(PG, "GATHER_WARPS", warps)
+    n = 20_000
+    args, kw = PG.ladder_inputs(n, n, 10, n + 1, unified=unified,
+                                stage=stage, max_bids=60_000, first=first,
+                                first_mod=1024)
+    kernel = PG.gs_ladder_uni if unified else PG.gs_ladder
+    x = PG.to_device(args, dev)
+    got, want = kernel(*x, **kw), kernel.plain(*x, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    bids = got[-2].tolist()[0]
+    assert bids == (60_000 if stage == 3 else x[0][0])
+    if unified:
+        cnt = PG.ladder_counters()
+        assert cnt["from_lane"] + cnt["self"] == bids
+        assert cnt["stale"] <= cnt["from_lane"]
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(problem="max")])
 def test_rectangular_hybrid_on_cuda_matches_cpu(dev, kw):
     n, m = 3000, 5000             # > threshold 4096 unplaced at the start

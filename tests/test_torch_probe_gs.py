@@ -188,3 +188,92 @@ def test_wrappers_reject_bad_inputs():
     meta = [t.to("meta") if isinstance(t, torch.Tensor) else t for t in a]
     with pytest.raises(RuntimeError, match="unsupported device"):
         PG.gs_ladder(*meta, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernels' protocols on the CPU (csrc/probe_queue.cu's pump,
+# csrc/probe_ladder.cu's look-ahead kernel), bit for bit against the plain
+# versions.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3, 7, 132])
+@pytest.mark.parametrize("n", [0, 1, 2, 16, 17, 1000])
+def test_pump_split_matches_plain(n, blocks):
+    """P6 over B blocks of contiguous ranges, PUMP_CONSUMERS warps each,
+    uint32 partials combined by wrapping addition, on distinct rows (entry
+    (r, c) = 131 r + c, large enough to wrap): equal to _queue_plain."""
+    hbm = (np.arange(2 * n + 2, dtype=np.int64)[:, None] * 131
+           + np.arange(PG.LINE)).astype(np.int32)
+    hbm[::3] *= 40_000                 # sums past 2**31
+    want = PG.while_double_buffer((n,), torch.from_numpy(hbm))[0]
+    got = PG.pump_mirror(hbm, n, blocks)
+    assert got.dtype == torch.int32 and got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("n,sms,blocks", [(0, 132, 1), (16, 132, 1),
+                                          (64, 132, 1), (65, 132, 2),
+                                          (500_000, 132, 132),
+                                          (500_000, 114, 114)])
+def test_pump_grid(n, sms, blocks):
+    assert PG.pump_blocks(n, sms) == blocks
+
+
+def _ladder_case(first, n, stage, max_bids):
+    args, kw = PG.ladder_inputs(n, n, 4, n + 1, unified=True, stage=stage,
+                                max_bids=max_bids, first=first, first_mod=8,
+                                prices=(np.random.default_rng(5).random(n)
+                                        * 4).astype(np.float32))
+    return PG.to_device(args, "cpu"), kw
+
+
+@pytest.mark.parametrize("snapshot,seed", [("stalest", 0), ("random", 1),
+                                           ("random", 2)])
+@pytest.mark.parametrize("stamp_bits,warps", [(2, 1), (12, 4)])
+@pytest.mark.parametrize("first", ["arange", "mod", "three"])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_ladder_lookahead_mirror_matches_plain(stage, first, stamp_bits,
+                                               warps, snapshot, seed):
+    """Gather lanes reading stale snapshots (the stalest allowed, or random
+    lags), passes of up to 32 cut at a repeated column, stamp validation
+    (a 4-entry table forces collisions), the commit warp's own reads of
+    recent pushes: acc, prices, owner, queue and stats equal
+    _ladder_plain's bit for bit, on instances with repeated first columns
+    and evictions."""
+    x, kw = _ladder_case(first, 300, stage, 2000)
+    want = PG.gs_ladder_uni(*x, **kw)
+    st = x[3].clone()
+    q, p, o = st[0].numpy(), st[1].view(torch.float32).numpy(), st[2].numpy()
+    counts = PG._ladder_args(x[0], x[1], x[2], st[0],
+                             st[1].view(torch.float32), st[2], kw["K"],
+                             stage)
+    stats, acc, cnt = PG.ladder_lookahead_mirror(
+        stage, counts, x[1], x[2], q, p, o, kw["K"], gather_warps=warps,
+        stamp_bits=stamp_bits, snapshot=snapshot, seed=seed)
+    _assert_same(st.numpy(), want[0].numpy())
+    assert stats.tolist() == want[1].tolist()
+    _assert_same(acc, want[2].numpy())
+    assert cnt["from_lane"] + cnt["self"] == stats[0]
+    if first != "arange" and stage >= 2 and snapshot == "stalest":
+        assert cnt["stale"] > 0            # the instance did conflict
+    if first == "three" and stage == 3:
+        assert stats.tolist() == [2000, 2]  # a ring of two rows throughout
+
+
+def test_ladder_inputs_first_columns():
+    """first="mod": column u mod first_mod, every row queued; "three": rows
+    0-2 queued alone, all on column 0."""
+    args, _ = PG.ladder_inputs(40, 40, 3, 41, unified=False, stage=3,
+                               first="mod", first_mod=8)
+    cols = args[1].reshape(-1)[:40 * 3].reshape(40, 3)
+    assert (cols[:, 0] == np.arange(40) % 8).all() and args[0][0] == 40
+    args, _ = PG.ladder_inputs(40, 40, 3, 41, unified=True, stage=3,
+                               first="three")
+    cols = args[1].reshape(-1)[:40 * 3].reshape(40, 3)
+    assert (cols[:3, 0] == 0).all() and args[0][0] == 3
+    assert args[3][0, :3].tolist() == [0, 1, 2]
+    with pytest.raises(ValueError, match="first"):
+        PG.ladder_inputs(4, 4, 3, 5, unified=True, stage=1, first="x")
+    with pytest.raises(ValueError, match="snapshot"):
+        PG.ladder_lookahead_mirror(1, (4, 10, 5), *args[1:3], *(
+            np.zeros(8, np.int32),) * 3, 3, snapshot="x")
