@@ -3,7 +3,7 @@
     python3 chip_smoke.py               # every phase (below)
     python3 chip_smoke.py --k12 LABEL   # K1 and K2's timings alone
     python3 chip_smoke.py --k3 LABEL    # K3's timings on the headline tail
-    python3 chip_smoke.py --probes LABEL  # P6/P9 and P16/P17 timings alone
+    python3 chip_smoke.py --probes LABEL  # the probe timings alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -81,7 +81,14 @@ of which raises on failure (so the exit code is non-zero):
                  sslap_tpu_torch.ops.probe_gs` runs it, launch counts zeroed
                  around it; each probe's kernel against its plain version
                  at the reference's shapes (exact) with the reference's
-                 asserts; P6 (the pump) at n = 0, 1 and 17 against its plain
+                 asserts; every probe kernel's device time per call there
+                 (torch.profiler over 20 calls, and 20 calls back to back
+                 where the wrapper does not synchronise) beside an empty
+                 kernel's (the launch floor); P15 at 2**20 positions over
+                 2**18 row pairs (256 MB, made from a seed)
+                 against its plain version over 20,000 positions and a
+                 numpy form over all, beside its byte bound; P6 (the pump)
+                 at n = 0, 1 and 17 against its plain
                  version and the closed form, and P6 against P9 (start +
                  wait) over 500,000 copies from a 512 MB table of distinct
                  rows (entry (r, c) = 131 r + c, made on the card), each
@@ -139,7 +146,9 @@ ns/bid of the scaled runs beside; P6's rows_500k: its time at scale
 against its byte bound and index_select's; P16/P17's ms_device back to
 back, ns/bid on the conflict instances, the byte and float-chain bounds
 at 1M (two dependent adds a bid, 4 cycles each at the card's maximum SM
-clock) and the share of each reached; P16's counters), its bound (bound_ms, bound_by,
+clock) and the share of each reached, and their counters; every probe's
+kernel_us, its kernel's device time per call from the profiler; P15's
+scale_2e20 and launch_floor_us), its bound (bound_ms, bound_by,
 bound_bytes: each input read once and each output written once on that
 run's data, over 3.35 TB/s, or its operations over 67 TFLOP/s) and the
 time of one PyTorch call computing the same function where there is one
@@ -168,11 +177,13 @@ the root of another tree of this repository (an older commit unpacked with
 git archive) measures that tree's kernels with this code: run the two
 trees in turns (A, B, B, A) in one process sequence on one card.
 
---probes LABEL runs only phase 9's P6/P9 and P16/P17 measurements (P6 and
-P16/P17 back to back at the reference shapes, with index_select beside
-P6, and both P6's and index_select's kernels' device time per call under
-torch.profiler; P6 at n = 0, 1, 17 and P6/P9 at 500,000 copies; the ladder kernels at
-1M rows, closed form and conflict instances) and prints them as one line
+--probes LABEL runs only phase 9's timings (P6 back to back at the
+reference shape, with index_select beside it, and both P6's and
+index_select's kernels' device time per call under torch.profiler; the
+launch floor and every probe kernel's device time per call at the
+reference shape; P15 at scale; P6 at n = 0, 1, 17 and P6/P9 at 500,000
+copies; the ladder kernels at 1M rows, closed form and conflict
+instances) and prints them as one line
 "PROBES LABEL {...}"; A/B between trees as --k12 (a tree whose
 ladder_inputs has no first= skips the conflict instances).
 
@@ -1284,8 +1295,11 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+# rows read per iteration, 512 bytes each (P13, P15: row 2r + 1 and the
+# 32-byte sector of row 2r's first entry)
 _QUEUE_ROW_READS = {"while_qtable_dma_store": 16 / 12, "qdma_dual": 2,
-                    "qdma_store_datadep": 2, "qdma_store_via_dma": 2}
+                    "qdma_store_datadep": 1 + 32 / 512,
+                    "qdma_store_via_dma": 1 + 32 / 512}
 
 
 def _probe_bound(name, x, out):
@@ -1455,12 +1469,24 @@ def _ladder_conflicts(dev, kernel, n, K):
             # a run of three bids times the launch, not a bid: none
             per = 1e6 * ms / bids if bids >= LADDER_PLAIN_BIDS else None
             out.setdefault(first, {})[str(stage)] = per
-            if kernel is PG.gs_ladder_uni:
-                counters[f"{first} {stage}"] = PG.ladder_counters()
+            cnt = _ladder_counters(kernel)
+            if cnt is not None:
+                counters[f"{kernel.name} {first} {stage}"] = cnt
             log(f"[9 probes] {kernel.name} first={first} stage {stage}: "
                 f"== plain over {checked} bids; {ms:.3f} ms over {bids} "
                 f"bids ({per} ns/bid)")
     return out, counters
+
+
+def _ladder_counters(kernel):
+    """The counters of ``kernel``'s last launch (P16, P17), or None where
+    the tree keeps none for it (an older tree keeps only P16's)."""
+    read = getattr(PG, "ladder_counters", None)
+    if read is None:
+        return None
+    if "kernel" in inspect.signature(read).parameters:
+        return read(kernel)
+    return read() if kernel is PG.gs_ladder_uni else None
 
 
 def _ladder_at_scale(dev, n=N_HEAD, K=K_HEAD):
@@ -1487,11 +1513,12 @@ def _ladder_at_scale(dev, n=N_HEAD, K=K_HEAD):
             _ladder_check(kernel, prefix, kw,
                           f"stage {stage} over {LADDER_PLAIN_BIDS} bids")
             out, ms = _events_ms(lambda: kernel(*x, **kw))
+            cnt = _ladder_counters(kernel)
+            if cnt is not None:
+                counters[f"{kernel.name} arange {stage}"] = cnt
             if unified:
                 q, p, o = out[0][0], out[0][1].view(torch.float32), out[0][2]
                 q0 = x[3][0]
-                counters[f"arange {stage}"] = getattr(
-                    PG, "ladder_counters", lambda: None)()
             else:
                 q, p, o = (t.reshape(-1) for t in out[:3])
                 q0 = x[3].reshape(-1)
@@ -1553,8 +1580,12 @@ def _ladder_device_ms(name, dev):
     counts = PG._ladder_args(x[0], x[1], x[2], *PG._views(unified, x[3:]),
                              kw["K"], kw["stage"])
 
+    # an older tree's _ladder_cuda also takes the layout
+    lead = (kw["stage"], unified) if "unified" in inspect.signature(
+        PG._ladder_cuda).parameters else (kw["stage"],)
+
     def run(*tables):
-        PG._ladder_cuda(kw["stage"], unified, counts, x[1], x[2],
+        PG._ladder_cuda(*lead, counts, x[1], x[2],
                         *PG._views(unified, tables), kw["K"])
     return _device_ms(lambda: [t.clone() for t in x[3:]], run, PROBE_B2B)
 
@@ -1575,11 +1606,163 @@ def _kernel_us(fn, reps=PROBE_B2B):
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+# Probes whose wrapper does not synchronise (P1-P6, P9): timed back to back
+_B2B_PROBES = ("dma_hbm_dynrows", "dma_vmem_dynoff2", "dma_vmem_dynoff8",
+               "lane_read_write", "lane_read_write_2d", "while_double_buffer",
+               "sem_2d_dynamic")
+STORE_N = 2 ** 20             # P15 at scale: positions (and queue entries)
+STORE_PAIRS = 2 ** 18         # ... row pairs (hbm [2**19, 128], 256 MB)
+STORE_PLAIN = 20_000          # ... against the plain version on a prefix
+
+
+def _own_kernel_us(fn, reps=PROBE_B2B):
+    """Device time per launch, us, of this repository's kernels (in
+    anonymous namespaces) that fn launches (a probe call launches one),
+    from torch.profiler over reps calls: a synchronising wrapper's kernel
+    time without its host work.  Per launch the profiler recorded, so a
+    dropped event does not lower it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / e.count
+               for e in prof.key_averages()
+               if "anonymous namespace" in e.key and e.count)
+
+
+def _launch_floor_us(dev):
+    """An empty kernel's device time per launch, us, as _own_kernel_us
+    takes it; None for a tree without one."""
+    lib = _build.load()
+    if not hasattr(lib, "sslap_empty"):
+        return None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _own_kernel_us(lambda: _build.check(lib.sslap_empty(stream),
+                                               "empty kernel"))
+
+
+def _probe_device(name, dev):
+    """Probe ``name`` at the reference shape: its kernel's device time per
+    call (kernel_us, profiler) and, where the wrapper does not
+    synchronise, the device time per call of PROBE_B2B calls back to back
+    (ms_device; P16-P17 through their launch alone)."""
+    kernel = PG.PROBES[name]
+    args, kw = PG.make_inputs(name)
+    x = PG.to_device(args, dev)
+    run = lambda: kernel(*x, **kw)  # noqa: E731
+    out = dict(kernel_us=_own_kernel_us(run))
+    if name in _B2B_PROBES:
+        out["ms_device"] = _device_ms(tuple, run, PROBE_B2B)
+    elif name.startswith(("gs_uni", "gs_ladder")):
+        out["ms_device"] = _ladder_device_ms(name, dev)
+    return out
+
+
+def _store_closed_form(q, first, sums, n):
+    """P15's result in numpy: the loop for positions below 96 (they may
+    read slots it wrote), then for the rest the exclusive prefix sum of
+    row sums and, per slot 64..95, its last writer.  (q after, out, the
+    number of distinct row ids read)."""
+    q = q.copy()
+    acc = np.uint32(0)
+    head = []
+    with np.errstate(over="ignore"):
+        for i in range(min(n, 96)):
+            rid = q[i]
+            head.append(rid)
+            q[64 + (first[rid] & 31)] = (acc + np.uint32(7)).view(np.int32)
+            acc = acc + sums[rid]
+        rid = q[96:n]
+        distinct = np.unique(np.concatenate([head, rid])).size
+        s = sums[rid]
+        pref = acc + np.concatenate([[np.uint32(0)],
+                                     np.cumsum(s, dtype=np.uint32)[:-1]])
+        tgt = 64 + (first[rid] & 31)
+        for t in range(64, 96):
+            hit = np.flatnonzero(tgt == t)
+            if hit.size:
+                q[t] = (pref[hit[-1]] + np.uint32(7)).view(np.int32)
+        out = acc + s.sum(dtype=np.uint32)
+    return q, np.array([out]).view(np.int32), distinct
+
+
+def _store_device_ms(hbm, q, n):
+    """P15's kernel alone (sslap_probe_store, no error read back), PROBE_B2B
+    launches back to back, each on its own copy of the queue: device ms
+    per launch; None for a tree without that entry point."""
+    lib = _build.load()
+    if not hasattr(lib, "sslap_probe_store"):
+        return None
+    blocks = PG.store_blocks(n)
+    stream = torch.cuda.current_stream(hbm.device).cuda_stream
+
+    def prepare():
+        return (q.clone(), torch.empty(3, dtype=torch.int32, device=q.device),
+                torch.empty(PG.STORE_RECORD * blocks, dtype=torch.int32,
+                            device=q.device),
+                torch.zeros(1, dtype=torch.int32, device=q.device))
+
+    def run(qq, out, scratch, arrived):
+        _build.check(lib.sslap_probe_store(
+            hbm.data_ptr(), qq.data_ptr(), n, hbm.shape[0] // 2,
+            PG.STORE_SEGMENT, blocks, scratch.data_ptr(), arrived.data_ptr(),
+            out.data_ptr(), stream), "qdma_store_via_dma")
+    return _device_ms(prepare, run, PROBE_B2B)
+
+
+def _store_at_scale(dev):
+    """P15 at STORE_N positions over STORE_PAIRS row pairs: kernel ==
+    plain version (on CPU copies) over STORE_PLAIN positions, kernel ==
+    the numpy form over all; one call's time (events), the kernel's device
+    time back to back (ms_device) and from the profiler (kernel_ms; one
+    call's events where a call takes over 50 ms), against two byte bounds:
+    each row pair the run reads once (bound_ms: the queue slots, 512 bytes
+    of row 2r + 1 and the 32-byte sector of row 2r's first entry per
+    distinct pair, the row written) and per position (bound_ms_per_position:
+    4 + 32 + 512 bytes a position, as if no pair repeated)."""
+    kernel = PG.qdma_store_via_dma
+    hbm, q = PG.to_device(PG.store_inputs(STORE_N, STORE_PAIRS, 9), dev)
+    hc, qc = hbm.cpu(), q.cpu()
+    got = kernel((STORE_PLAIN,), hbm, q)
+    want = kernel.plain((STORE_PLAIN,), hc, qc)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise AssertionError(f"P15 over {STORE_PLAIN} positions: kernel != "
+                             f"plain")
+    first = hc[0::2, 0].numpy()
+    sums = hc[1::2].sum(dim=1).numpy().astype(np.uint32)   # wraps
+    q_want, out_want, distinct = _store_closed_form(qc.numpy(), first, sums,
+                                                    STORE_N)
+    res, ms = _events_ms(lambda: kernel((STORE_N,), hbm, q))
+    if not (np.array_equal(res[0].cpu().numpy(), q_want)
+            and np.array_equal(res[1].cpu().numpy(), out_want)):
+        raise AssertionError(f"P15 at n = {STORE_N}: not the closed form")
+    kernel_ms = (ms if ms > 50 else 1e-3 * _own_kernel_us(
+        lambda: kernel((STORE_N,), hbm, q), reps=5))
+    ms_device = None if ms > 50 else _store_device_ms(hbm, q, STORE_N)
+    per_position = 1e3 * (STORE_N * (4 + 32 + 512) + 4 * PG.LINE) / \
+        HBM_BYTES_PER_S
+    bound = _bound(4 * STORE_N + distinct * (512 + 32) + 4 * PG.LINE + 4)
+    timed = ms_device or kernel_ms
+    out = dict(ms=ms, kernel_ms=kernel_ms, ms_device=ms_device,
+               distinct_pairs=distinct, **bound,
+               bound_share=bound["bound_ms"] / timed,
+               bound_ms_per_position=per_position,
+               per_position_share=per_position / timed)
+    log(f"[9 probes] P15 at n = {STORE_N} over {STORE_PAIRS} row pairs: "
+        f"== plain over {STORE_PLAIN} positions, == the numpy form; {out}")
+    return out
+
+
 def probe_timings():
-    """Phase 9's P6/P9 and P16/P17 measurements: P6 back to back at the
-    probe's shape beside index_select, P6 and P9 at scale, P16 and P17
-    back to back at the reference shape and at n = m = 1M (closed form and
-    conflict instances)."""
+    """Phase 9's probe measurements: P6 back to back at the probe's shape
+    beside index_select, an empty kernel's device time (the launch floor),
+    every probe kernel's device time per call at the reference shape, P15
+    at scale, P6 and P9 at scale, P16 and P17 at n = m = 1M (closed form
+    and conflict instances)."""
     dev = torch.device(DEVICE)
     out = {}
     args, _ = PG.make_inputs("while_double_buffer")
@@ -1592,8 +1775,10 @@ def probe_timings():
         kernel_us=_kernel_us(lambda: PG.while_double_buffer(*x)),
         library_kernel_us=_kernel_us(
             lambda: torch.index_select(x[1], 0, rows)))
-    for name in ("gs_uni3", "gs_ladder3"):
-        out[name] = dict(ms_device=_ladder_device_ms(name, dev))
+    out["launch_floor_us"] = _launch_floor_us(dev)
+    out["probe_device"] = {key: _probe_device(_probe_names(kernel)[-1], dev)
+                           for key, kernel in PG.KERNELS.items()}
+    out["store_scale"] = _store_at_scale(dev)
     out["pump"], out["pump_500k"] = _pump_against_start_wait(dev)
     ns, conflicts, counters = _ladder_at_scale(dev)
     out["ladder_ns_per_bid_1M"] = {f"{k} {s}": v for (k, s), v in ns.items()}
@@ -1602,6 +1787,11 @@ def probe_timings():
     out["ladder_bounds_stage3"] = {k: _ladder_bounds(N_HEAD, ns[(k, 3)])
                                    for k in ("gs_ladder_uni", "gs_ladder")}
     return out
+
+
+def _probe_names(kernel):
+    """The probes a kernel runs, in registry order."""
+    return [nm for nm, k in PG.PROBES.items() if k is kernel]
 
 
 def phase_probes():
@@ -1619,33 +1809,40 @@ def phase_probes():
     if min(launches.values()) <= 0:
         raise AssertionError(f"a probe kernel was not launched: {launches}")
     per_probe = {name: _probe_against_plain(name, dev) for name in PG.ORDER}
+    floor_us = _launch_floor_us(dev)
+    store_scale = _store_at_scale(dev)
     pump, pump_500k = _pump_against_start_wait(dev)
     ladder, conflicts, counters = _ladder_at_scale(dev)
     entries = []
     for key, kernel in PG.KERNELS.items():
-        names = [nm for nm, k in PG.PROBES.items() if k is kernel]
+        names = _probe_names(kernel)
         _, k_ms, p_ms, bound, lib_ms, b2b = per_probe[names[-1]]
+        device = _probe_device(names[-1], dev)
         entry = dict(name=f"{key} {kernel.name}", route="cuda",
                      source=kernel.source, replaces=kernel.replaces,
                      launches=launches[key],
                      max_abs_err=max(per_probe[nm][0] for nm in names),
                      ms=k_ms, plain_ms=p_ms, **bound, library_ms=lib_ms)
+        entry.update(device)
         if b2b is not None:
             entry["ms_device"] = b2b["kernel"]
             entry["library_ms_device"] = b2b["library"]
+        if kernel is PG.qdma_store_via_dma:
+            entry["launch_floor_us"] = floor_us
+            entry["scale_2e20"] = store_scale
         if kernel.name in pump:
             entry["ns_per_iter_500k"] = pump[kernel.name]
         if kernel is PG.while_double_buffer:
             entry["rows_500k"] = pump_500k
         if kernel in (PG.gs_ladder_uni, PG.gs_ladder):
-            entry["ms_device"] = _ladder_device_ms(names[-1], dev)
             entry["ns_per_bid_1M"] = {str(s): ladder[(kernel.name, s)]
                                       for s in (1, 2, 3)}
             entry["conflicts_ns_per_bid_1M"] = conflicts.get(kernel.name)
             entry["bounds_1M_stage3"] = _ladder_bounds(
                 N_HEAD, ladder[(kernel.name, 3)])
-        if kernel is PG.gs_ladder_uni:
-            entry["counters_1M"] = counters
+            entry["counters_1M"] = {k[len(kernel.name) + 1:]: v for k, v in
+                                    counters.items()
+                                    if k.startswith(kernel.name + " ")}
             entry["gather_warps"] = PG.GATHER_WARPS
         entries.append(entry)
     return entries
@@ -2240,7 +2437,7 @@ def k3(label: str) -> None:
 
 
 def probes(label: str) -> None:
-    """--probes LABEL: phase 9's P6/P9 and P16/P17 measurements alone
+    """--probes LABEL: phase 9's timings alone
     (probe_timings), each kernel checked on the way, printed as one line
     "PROBES LABEL {...}" (numbers unrounded)."""
     phase_device()

@@ -102,17 +102,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     # P4-P5: table, idx, widx, out, stream
     lib.sslap_probe_lane.restype = c_int
     lib.sslap_probe_lane.argtypes = [p, i64, i64, p, p]
-    # P6-P15: variant, hbm, vbm, q, pt, ot, n, out, stream
+    # P7-P14: variant, hbm, vbm, q, pt, ot, n, limit, out, stream
     lib.sslap_probe_queue.restype = c_int
-    lib.sslap_probe_queue.argtypes = [c_int, p, p, p, p, p, i32, p, p]
+    lib.sslap_probe_queue.argtypes = [c_int, p, p, p, p, p, i32, i32, p, p]
+    # P15: hbm, q, n, limit, seg, blocks, scratch, arrived, out, stream
+    lib.sslap_probe_store.restype = c_int
+    lib.sslap_probe_store.argtypes = [p, p, i32, i32, i32, c_int, p, p, p, p]
     # P6: hbm, n, blocks, out, stream
     lib.sslap_probe_pump.restype = c_int
     lib.sslap_probe_pump.argtypes = [p, i32, c_int, p, p]
-    # P16-P17: stage, unified, clines, vlines, K, q, p, o, qcount,
+    # P16-P17: stage, clines, vlines, K, q, price bits, o, qcount,
     # max_bids, cap, gather_warps, stats, acc, counters, stream
     lib.sslap_probe_ladder.restype = c_int
-    lib.sslap_probe_ladder.argtypes = [c_int, c_int, p, p, i32, p, p, p, i64,
-                                       i64, i64, c_int, p, p, p, p]
+    lib.sslap_probe_ladder.argtypes = [c_int, p, p, i32, p, p, p, i64, i64,
+                                       i64, c_int, p, p, p, p]
+    lib.sslap_empty.restype = c_int
+    lib.sslap_empty.argtypes = [p]
     lib.sslap_smem_optin.restype = c_int
     lib.sslap_smem_optin.argtypes = [c_int]
     lib.sslap_error_string.restype = ctypes.c_char_p

@@ -12,11 +12,14 @@
 // them and the stage's time would mean nothing.  The +0 on price and value
 // reads give the TPU kernel's one-hot read bits (-0.0 -> +0.0).
 //
-// UNIFIED keeps the price column as int32 bits in one state table (rows
-// queue | price bits | owner, each `width` wide), read and written as
-// bits; otherwise prices is its own f32 table.  The TPU needed the unified
-// table because its second and third aliased VMEM tables read zeros; on the
-// GPU both layouts are flat global arrays.
+// The unified table keeps the price column as int32 bits in one state
+// table (rows queue | price bits | owner, each `width` wide); P17 keeps
+// three tables, prices f32.  The TPU needed the unified table because its
+// second and third aliased VMEM tables read zeros; on the GPU both layouts
+// are flat global arrays, and both run one kernel (lookahead_kernel), which
+// reads and writes the price column as int32 bits through a pointer to the
+// price table's first entry: a gather lane loads single entries, so neither
+// layout needs a gather of its own.
 //
 // Bound on an H100: the bytes (20 a bid plus the tables written) are
 // nothing; the float32 chain (two dependent adds a bid, in bid order) is
@@ -24,14 +27,7 @@
 // dependent chain queue slot -> row's first entry -> price (-> owner ->
 // stores), three to four global round trips.
 //
-// P17 (three tables) keeps the one-thread kernel (serial_kernel): it runs
-// the chain as is, and fetches the row's TPU-style NL-line window
-// (gs_kernel.py:232-241, a cp.async.bulk of the 16-byte-aligned window [4
-// floor(uK / 4), + WIN), WIN = roundup4(K + 3), per operand, on one
-// mbarrier) of which it uses entry 0; the wrapper checks that the padded
-// arrays hold every window.
-//
-// P16 (unified) takes the chain off the critical path (lookahead_kernel).
+// lookahead_kernel takes the chain off the critical path.
 // One block: warp 0 commits, G gather warps read ahead.
 //   Gather lanes.  Lane g of the G x 32 takes ring positions g, g + 32 G,
 //   ...  A FIFO slot is final once written (positions below the published
@@ -67,70 +63,17 @@
 //   ~1,000 cycles, see below) and nothing is published (no fence): the
 //   lanes could not run ahead of it there.
 //   Waiting gather lanes sleep briefly between polls.
-// Measured on an H100 (700 W; PERF.md) at n = m = 1M, K = 10: 16.4 / 31.5
-// / 32.3 ns a bid at stages 1-3 (G = 4), against 466 / 464 / 483 for the
-// serial kernel; a pass of 32 costs ~1,000 cycles at stage 1 and ~2,000
-// with stores (the release fence).  On a ring of two rows (every bid on
-// one column) 299 ns a bid, the serial kernel 291.
+// Measured on an H100 (700 W; PERF.md) at n = m = 1M, K = 10: P16 16.4 /
+// 31.5 / 32.3 ns a bid at stages 1-3 (G = 4), against 466 / 464 / 483 for
+// the one-thread kernel P16 and P17 had before; a pass of 32 costs ~1,000
+// cycles at stage 1 and ~2,000 with stores (the release fence).  On a ring
+// of two rows (every bid on one column) 299 ns a bid, the one-thread
+// kernel 291.
 // Wait loops trap after 10 s with no progress (sync.cuh).
 #include "common.cuh"
 #include "sync.cuh"
-#include "tma.cuh"
 
 namespace {
-
-__host__ __device__ constexpr int32_t window(int32_t K) {
-  return (K + 3 + 3) / 4 * 4;
-}
-
-template <int STAGE>
-__global__ void serial_kernel(const int32_t* __restrict__ clines,
-                              const float* __restrict__ vlines, int32_t K,
-                              int32_t* q, float* prices, int32_t* owner,
-                              int64_t qcount, int64_t max_bids, int64_t cap,
-                              int32_t* stats, float* acc_out) {
-  extern __shared__ __align__(16) int32_t cwin[];   // [WIN] cols, [WIN] vals
-  __shared__ __align__(8) uint64_t bar;
-  const int32_t win = window(K);
-  float* vwin = reinterpret_cast<float*>(cwin + win);
-  const uint32_t bytes = static_cast<uint32_t>(win) * 4;
-  sslap::mbar_init(&bar);
-  uint32_t parity = 0;
-  int64_t head = 0, tail = qcount, bids = 0;
-  float acc = 0.0f;
-  while (head != tail && bids < max_bids) {
-    const int32_t u = q[head];
-    head = head + 1 == cap ? 0 : head + 1;
-    const int64_t at = static_cast<int64_t>(u) * K;
-    const int64_t start = at & ~static_cast<int64_t>(3);
-    sslap::mbar_expect_tx(&bar, 2 * bytes);
-    sslap::bulk_g2s(cwin, clines + start, bytes, &bar);
-    sslap::bulk_g2s(vwin, vlines + start, bytes, &bar);
-    sslap::mbar_wait(&bar, parity);
-    parity ^= 1;
-    const int off = static_cast<int>(at - start);
-    const int32_t j = cwin[off];
-    const float v0 = vwin[off] + 0.0f;
-    const float pk = prices[j] + 0.0f;
-    acc = (acc + pk) + v0;
-    if (STAGE >= 3) {
-      const int32_t prev = owner[j];
-      if (prev >= 0) {
-        q[tail] = prev;
-        tail = tail + 1 == cap ? 0 : tail + 1;
-      }
-    }
-    if (STAGE >= 2) {
-      prices[j] = pk + 0.5f;
-      owner[j] = u;
-    }
-    ++bids;
-  }
-  stats[0] = static_cast<int32_t>(bids);
-  stats[1] = static_cast<int32_t>(tail >= head ? tail - head
-                                               : tail - head + cap);
-  acc_out[0] = acc;
-}
 
 constexpr int kMaxGather = 8;                // gather warps at most
 constexpr int kStampBits = 12;               // as K3's (gs.cu)
@@ -471,73 +414,50 @@ __global__ void lookahead_kernel(const int32_t* __restrict__ cols,
   }
 }
 
-template <int STAGE, bool UNIFIED>
+template <int STAGE>
 cudaError_t launch(const int32_t* clines, const float* vlines, int32_t K,
-                   int32_t* q, void* prices, int32_t* owner, int64_t qcount,
+                   int32_t* q, int32_t* pbits, int32_t* owner, int64_t qcount,
                    int64_t max_bids, int64_t cap, int gather_warps,
                    int32_t* stats, float* acc, long long* counters,
                    cudaStream_t stream) {
-  if constexpr (UNIFIED) {
-    if (gather_warps < 1 || gather_warps > kMaxGather)
-      return cudaErrorInvalidValue;
-    const int smem = kStamps * sizeof(Stamp) + 64 * gather_warps *
-                                                   sizeof(Slot);
-    static bool opted_in = false;             // above 48 KB, once
-    if (!opted_in) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          lookahead_kernel<STAGE>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kStamps * static_cast<int>(sizeof(Stamp)) +
-              64 * kMaxGather * static_cast<int>(sizeof(Slot)));
-      if (err != cudaSuccess) return err;
-      opted_in = true;
-    }
-    lookahead_kernel<STAGE><<<1, 32 * (1 + gather_warps), smem, stream>>>(
-        clines, vlines, K, q, static_cast<int32_t*>(prices), owner, qcount,
-        max_bids, cap, gather_warps, stats, acc, counters);
-    return cudaGetLastError();
-  } else {
-    const size_t smem = 8 * static_cast<size_t>(window(K));
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          serial_kernel<STAGE>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
-    serial_kernel<STAGE><<<1, 1, smem, stream>>>(
-        clines, vlines, K, q, static_cast<float*>(prices), owner, qcount,
-        max_bids, cap, stats, acc);
-    return cudaGetLastError();
+  if (gather_warps < 1 || gather_warps > kMaxGather)
+    return cudaErrorInvalidValue;
+  const int smem = kStamps * sizeof(Stamp) + 64 * gather_warps * sizeof(Slot);
+  static bool opted_in = false;               // above 48 KB, once
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lookahead_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kStamps * static_cast<int>(sizeof(Stamp)) +
+            64 * kMaxGather * static_cast<int>(sizeof(Slot)));
+    if (err != cudaSuccess) return err;
+    opted_in = true;
   }
+  lookahead_kernel<STAGE><<<1, 32 * (1 + gather_warps), smem, stream>>>(
+      clines, vlines, K, q, pbits, owner, qcount, max_bids, cap, gather_warps,
+      stats, acc, counters);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// P16 (unified: the look-ahead kernel with `gather_warps` gather warps,
-// `counters` int64[6] or null) and P17 (three tables: the serial kernel).
-extern "C" int sslap_probe_ladder(int stage, int unified,
-                                  const int32_t* clines, const float* vlines,
-                                  int32_t K, int32_t* q, void* prices,
-                                  int32_t* owner, int64_t qcount,
-                                  int64_t max_bids, int64_t cap,
-                                  int gather_warps, int32_t* stats,
-                                  float* acc, long long* counters,
-                                  void* stream) {
+// P16 and P17: the look-ahead kernel with `gather_warps` gather warps on
+// the queue, the price table as int32 bits and the owner table; `counters`
+// int64[6] or null.
+extern "C" int sslap_probe_ladder(int stage, const int32_t* clines,
+                                  const float* vlines, int32_t K, int32_t* q,
+                                  int32_t* pbits, int32_t* owner,
+                                  int64_t qcount, int64_t max_bids,
+                                  int64_t cap, int gather_warps,
+                                  int32_t* stats, float* acc,
+                                  long long* counters, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define SSLAP_LADDER(S, U)                                                  \
-  launch<S, U>(clines, vlines, K, q, prices, owner, qcount, max_bids, cap, \
-               gather_warps, stats, acc, counters, st)
+#define SSLAP_LADDER(S)                                                    \
+  launch<S>(clines, vlines, K, q, pbits, owner, qcount, max_bids, cap,     \
+            gather_warps, stats, acc, counters, st)
   cudaError_t err = cudaErrorInvalidValue;
-  if (unified) {
-    if (stage == 1) err = SSLAP_LADDER(1, true);
-    if (stage == 2) err = SSLAP_LADDER(2, true);
-    if (stage == 3) err = SSLAP_LADDER(3, true);
-  } else {
-    if (stage == 1) err = SSLAP_LADDER(1, false);
-    if (stage == 2) err = SSLAP_LADDER(2, false);
-    if (stage == 3) err = SSLAP_LADDER(3, false);
-  }
+  if (stage == 1) err = SSLAP_LADDER(1);
+  if (stage == 2) err = SSLAP_LADDER(2);
+  if (stage == 3) err = SSLAP_LADDER(3);
 #undef SSLAP_LADDER
   return static_cast<int>(err);
 }

@@ -5,7 +5,8 @@
 //   copy.start() HBM -> VMEM             bulk_g2s: cp.async.bulk (the TMA's
 //                                        1-D copy) completing on an mbarrier
 //   copy.wait() on sem.at[...]           mbar_wait on that mbarrier's phase
-//   copy.start()/wait() VMEM -> HBM      bulk_s2g + bulk_wait (a bulk group)
+//   copy.start()/wait() VMEM -> HBM      bulk_s2g + bulk_wait_read (a bulk
+//                                        group)
 //
 // A bulk copy moves a multiple of 16 bytes between 16-byte-aligned
 // addresses; one thread issues it, arrive.expect_tx tells the barrier how
@@ -82,11 +83,11 @@ __device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Until every bulk group of this thread has written global memory, and
-// those writes are ordered before this thread's later generic accesses.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+// Until every bulk group of this thread has read its shared source (which
+// may then be overwritten, or freed at the block's exit); the global writes
+// complete before the kernel does.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 }  // namespace sslap

@@ -13,12 +13,13 @@ stages.  Here each is a wrapper beside its plain PyTorch version:
     P6-P15  while_double_buffer, while_qtable_dma, while_qtable_dma_store,
             sem_2d_dynamic, qdma_dual, qdma_alias3, qdma_alias2,
             qdma_store_datadep, qdma_store_bitcast, qdma_store_via_dma
-            -> csrc/probe_queue.cu  (P7-P15 one loop kernel, a variant
-               each; P6 a TMA ring spread over the grid)
+            -> csrc/probe_queue.cu  (P7-P14 one loop kernel, a variant
+               each; P6 a TMA ring spread over the grid; P15 passes of
+               32 positions a warp, one bulk write back)
     P16     gs_ladder_uni (probes gs_uni1-3)
     P17     gs_ladder (probes gs_ladder1-3)
-            -> csrc/probe_ladder.cu (P16 look-ahead gather warps and an
-               in-order commit warp; P17 one thread; stages 1-3)
+            -> csrc/probe_ladder.cu (both: look-ahead gather warps and an
+               in-order commit warp; stages 1-3)
 
 and the probes ``gs_small``, ``gs_small_noprefetch``,
 ``gs_small_constscan`` and ``gs_small_noprices`` drive K3 itself
@@ -30,11 +31,14 @@ ladder kernels also return ``acc`` (f32 [1]).  CPU tensors run the plain
 version, CUDA tensors launch the kernel or raise; ``.launches`` counts
 launches.  The ladder kernels also take any n, m, K and cap
 (``ladder_inputs``, whose ``first=`` also makes instances whose first
-columns repeat), so they run at the headline's scale.  ``pump_mirror``
-and ``ladder_lookahead_mirror`` replay the P6 and P16 kernels' protocols
-on the CPU (their split over blocks; stale look-ahead snapshots, stamp
+columns repeat), so they run at the headline's scale.  A P7-P15 loop
+raises ValueError at the first row id it reads outside the tables, on
+either device (the kernels report it in an error word).  ``pump_mirror``,
+``store_pass_mirror`` and ``ladder_lookahead_mirror`` replay the P6, P15
+and P16-P17 kernels' protocols on the CPU (their split over blocks or
+segments; passes cut at a written slot; stale look-ahead snapshots, stamp
 validation and passes), for the tests to hold against the plain
-versions; ``ladder_counters()`` reads P16's last launch's counters.
+versions; ``ladder_counters()`` reads the last ladder launch's counters.
 
     python -m sslap_tpu_torch.ops.probe_gs [name]
 
@@ -61,7 +65,11 @@ LINE = 128
 # kernel's summing warps (kPumpConsumers)
 PUMP_CHUNK = 64
 PUMP_CONSUMERS = 4
-# P16 (csrc/probe_ladder.cu): gather warps beside the commit warp (1-8),
+# P15 (csrc/probe_queue.cu): positions a one-warp block takes (a multiple
+# of 32, >= 128), and the int32 a block's record holds (kRec)
+STORE_SEGMENT = 512
+STORE_RECORD = 68
+# P16-P17 (csrc/probe_ladder.cu): gather warps beside the commit warp (1-8),
 # the kernel's stamp table (kStampBits) and its ring of recent pushes
 # (kRecent)
 GATHER_WARPS = 4
@@ -215,44 +223,54 @@ lane_read_write_2d = _lane_probe("lane_read_write_2d", 159)
 
 
 def _queue_args(variant, s, hbm, q, vbm, pt, ot):
-    """Validated (n, hbm, q copy, vbm, pt, ot): every row id a loop can
-    reach (2 rid + 2 <= rows), every table index in range."""
+    """Validated (n, hbm, q copy, vbm, pt, ot, limit): every table index in
+    range, and P6 and P9's rows 2i, i < n, inside the copy table.  A loop
+    that reads its row ids from the queue (P7-P15) checks each id it reads
+    against ``limit`` (rows // 2, and the price table's size for P11-P12):
+    P8, P13 and P14 store into the queue, so a later iteration can read a
+    slot the loop wrote."""
     n = _ints(s)[0]
     _table(hbm, torch.int32, "hbm", aligned=hbm.is_cuda)
     _need(hbm.ndim == 2 and hbm.shape[1] == LINE and n >= 0,
           "queue probe: need [rows, 128] int32 rows and n >= 0")
-    rows = hbm.shape[0]
-    ids = torch.arange(max(n - 1, 0), n)     # P6, P9: rows 2i, i < n
-    if variant not in (6, 9):
+    limit = hbm.shape[0] // 2
+    if variant in (6, 9):                  # rows 2i, i < n
+        _need(n <= limit, f"queue probe: a row id outside the copy table "
+              f"(rows 2i, i < {n}, of {hbm.shape[0]})")
+    else:
         q = _table(q, torch.int32, "queue").clone()
         _need(q.numel() >= LINE and q.numel() >= n,
               f"queue probe: queue table of {q.numel()} < {max(n, LINE)}")
-        ids = q.view(-1)[:n].cpu()
         if variant == 8:
             _need(q.numel() >= n + min(n, 4), "queue probe: no room to push")
-            ids = torch.cat([ids, ids[:4] + 20])
-    _need(bool(((ids >= 0) & (2 * ids + 2 <= rows)).all()),
-          "queue probe: a row id outside the copy table")
     if variant == 10:
         _table(vbm, torch.float32, "vbm", aligned=vbm.is_cuda)
         _need(vbm.shape == hbm.shape, "qdma_dual: vbm shape != hbm shape")
     if variant in (11, 12):
         pt = _table(pt, torch.float32, "prices").clone()
-        _need(not n or int(ids.max()) < pt.numel(),
-              "qdma_alias: row id outside the price table")
+        limit = min(limit, pt.numel())
     if variant == 11:
         ot = _table(ot, torch.int32, "owner").clone()
         _need(ot.numel() == pt.numel(), "qdma_alias3: owner size != prices")
-    return n, hbm, q, vbm, pt, ot
+    return n, hbm, q, vbm, pt, ot, limit
 
 
-def _queue_plain(variant, n, hbm, q, vbm, pt, ot):
+def _bad_row(i, rid, limit):
+    """The error of a loop that reads row id ``rid`` at position ``i``."""
+    return ValueError(f"queue probe: row id {rid} read at position {i} is "
+                      f"outside the tables (ids in [0, {limit}))")
+
+
+def _queue_plain(variant, n, hbm, q, vbm, pt, ot, limit):
     """The probe's loop, one iteration at a time (Python ints, wrapped to
-    int32 where the kernel stores)."""
+    int32 where the kernel stores); raises ``_bad_row`` at the first row id
+    outside [0, limit)."""
     qf = q.view(-1) if q is not None else None
     acc, i, tail = 0, 0, n
     while i < (tail if variant == 8 else n):
         rid = i if variant in (6, 9) else int(qf[i])
+        if not 0 <= rid < limit:
+            raise _bad_row(i, rid, limit)
         rows = hbm[2 * rid:2 * rid + 2]
         if variant in (13, 15):          # the index comes from copied data
             qf[64 + int(rows[0, 0]) % 32] = _wrap32(acc + 7)
@@ -301,6 +319,86 @@ def pump_mirror(hbm, n: int, blocks: int):
     return torch.tensor([total.view(np.int32)], dtype=torch.int32)
 
 
+def store_blocks(n: int, segment: int = None) -> int:
+    """P15's grid: one one-warp block per ``segment`` positions (default
+    STORE_SEGMENT), at least one."""
+    return max(1, -(-n // (segment or STORE_SEGMENT)))
+
+
+@np.errstate(over="ignore")
+def store_pass_mirror(n, hbm, q, limit, segment=None):
+    """P15's kernel (csrc/probe_queue.cu, store_pass_kernel) on the CPU:
+    segments of ``segment`` positions (default STORE_SEGMENT), each taken in
+    passes of up to 32 that end before the first position whose queue slot
+    an earlier position of the pass writes; per pass an exclusive scan with
+    the carried acc and, per slot, the highest position writing it; segment
+    0 reads the queue's first row with its stores applied.  One segment
+    writes that row back; with more, the merge takes the segment sums'
+    prefix and per slot the last segment that wrote it.  ``q`` (numpy,
+    flat) is modified in place; returns out (int32 [1]) and the counts
+    (passes, cut: passes cut at a written slot), or raises ``_bad_row``."""
+    segment = segment or STORE_SEGMENT
+    h = np.asarray(hbm).reshape(-1, LINE)
+    row = q[:LINE].copy()                # segment 0's row in shared memory
+    count = dict(passes=0, cut=0)
+    records = []
+    for lo in range(0, store_blocks(n, segment) * segment, segment):
+        hi = min(n, lo + segment)
+        acc, bad = np.uint32(0), None
+        last = {}                        # slot -> (position, acc there)
+        t = lo
+        while t < hi:
+            act = min(32, hi - t)
+            pos = np.arange(t, t + act)
+            rid = np.where(pos < LINE, row[np.minimum(pos, LINE - 1)],
+                           q[pos]) if lo == 0 else q[pos]
+            valid = (rid >= 0) & (rid < limit)
+            safe = np.where(valid, rid, 0)
+            tgt = 64 + (h[2 * safe, 0] & 31)
+            d = tgt - t
+            lanes = np.arange(act)
+            marks = d[valid & (d > lanes) & (d < 32)]
+            k = int(marks.min()) if marks.size else 32
+            if not valid.all() and int(np.argmin(valid)) < k:
+                b = int(np.argmin(valid))
+                bad = (t + b, int(rid[b]))
+                break
+            k = min(k, act)
+            s = h[2 * safe[:k] + 1].view(np.uint32).sum(axis=1,
+                                                        dtype=np.uint32)
+            mine = acc + np.concatenate(
+                [[np.uint32(0)], np.cumsum(s, dtype=np.uint32)[:-1]])
+            acc = acc + s.sum(dtype=np.uint32)
+            for lane in range(k):        # the highest lane on a slot wins
+                if not (tgt[lane + 1:k] == tgt[lane]).any():
+                    if lo == 0:
+                        row[tgt[lane]] = (mine[lane] + np.uint32(7)).view(
+                            np.int32)
+                    last[int(tgt[lane])] = (t + lane, mine[lane])
+            count["passes"] += 1
+            count["cut"] += int(k < act)
+            t += k
+        records.append((acc, bad, last))
+    if len(records) == 1:
+        acc, bad, _ = records[0]
+    else:
+        bad = next((r[1] for r in records if r[1] is not None), None)
+        prefix = np.concatenate([[np.uint32(0)], np.cumsum(
+            [r[0] for r in records], dtype=np.uint32)])
+        acc = prefix[-1]
+        row = q[:LINE].copy()
+        for slot in range(64, 96):
+            g = max((g for g, r in enumerate(records) if slot in r[2]),
+                    default=None)
+            if g is not None:
+                row[slot] = (prefix[g] + records[g][2][slot][1]
+                             + np.uint32(7)).view(np.int32)
+    if bad is not None:
+        raise _bad_row(*bad, limit)
+    q[:LINE] = row
+    return torch.tensor([np.uint32(acc).view(np.int32)]), count
+
+
 def _queue_outputs(variant, q, pt, ot, out):
     if variant in (6, 9):
         return (out,)
@@ -322,27 +420,46 @@ def _queue_probe(name, line, order):
                            kw.get("pt"), kw.get("ot"))
 
     def plain(s, *tables):
-        n, hbm, q, vbm, pt, ot = split(s, tables)
-        out = _queue_plain(variant, n, hbm, q, vbm, pt, ot)
+        n, hbm, q, vbm, pt, ot, limit = split(s, tables)
+        out = _queue_plain(variant, n, hbm, q, vbm, pt, ot, limit)
         return _queue_outputs(variant, q, pt, ot, out)
 
     def cuda(s, *tables):
-        n, hbm, q, vbm, pt, ot = split(s, tables)
+        n, hbm, q, vbm, pt, ot, limit = split(s, tables)
         lib = _build.load()
+        dev = hbm.device
         if variant == 6:
-            blocks = pump_blocks(n, _sms(hbm.device))
+            blocks = pump_blocks(n, _sms(dev))
             out = (torch.zeros if blocks > 1 else torch.empty)(
-                1, dtype=torch.int32, device=hbm.device)
+                1, dtype=torch.int32, device=dev)
             _build.check(lib.sslap_probe_pump(
                 hbm.data_ptr(), n, blocks, out.data_ptr(), _stream(hbm)),
                 name)
             return (out,)
-        out = torch.empty(1, dtype=torch.int32, device=hbm.device)
-        ptr = (lambda t: 0 if t is None else t.data_ptr())  # noqa: E731
-        _build.check(lib.sslap_probe_queue(
-            variant, hbm.data_ptr(), ptr(vbm), ptr(q), ptr(pt), ptr(ot), n,
-            out.data_ptr(), _stream(hbm)), name)
-        return _queue_outputs(variant, q, pt, ot, out)
+        # out[0] the probe's out, out[1:3] the first bad row id's position
+        # and id (P7-P15)
+        out = torch.empty(3, dtype=torch.int32, device=dev)
+        if variant == 15:
+            blocks = store_blocks(n)
+            more = blocks > 1
+            scratch = torch.empty(STORE_RECORD * blocks if more else 0,
+                                  dtype=torch.int32, device=dev)
+            arrived = (torch.zeros(1, dtype=torch.int32, device=dev)
+                       if more else scratch)
+            _build.check(lib.sslap_probe_store(
+                hbm.data_ptr(), q.data_ptr(), n, limit, STORE_SEGMENT,
+                blocks, scratch.data_ptr(), arrived.data_ptr(),
+                out.data_ptr(), _stream(hbm)), name)
+        else:
+            ptr = (lambda t: 0 if t is None else t.data_ptr())  # noqa: E731
+            _build.check(lib.sslap_probe_queue(
+                variant, hbm.data_ptr(), ptr(vbm), ptr(q), ptr(pt), ptr(ot),
+                n, limit, out.data_ptr(), _stream(hbm)), name)
+        if variant != 9:              # the error word (synchronises)
+            pos, rid = out[1:3].tolist()
+            if pos >= 0:
+                raise _bad_row(pos, rid, limit)
+        return _queue_outputs(variant, q, pt, ot, out[:1])
 
     return ProbeKernel(name, line, "probe_queue.cu", plain, cuda)
 
@@ -427,7 +544,7 @@ def _ladder_plain(stage, counts, clines, vlines, q, p, o, K):
 def ladder_lookahead_mirror(stage, counts, clines, vlines, q, p, o, K, *,
                             gather_warps=GATHER_WARPS, stamp_bits=STAMP_BITS,
                             snapshot="stalest", seed=0):
-    """P16's look-ahead protocol (csrc/probe_ladder.cu, lookahead_kernel)
+    """P16-P17's look-ahead protocol (csrc/probe_ladder.cu, lookahead_kernel)
     on the CPU: ``_ladder_plain``'s arguments (q, p, o numpy arrays,
     modified in place) and results, plus the kernel's counters.
 
@@ -520,39 +637,35 @@ def ladder_lookahead_mirror(stage, counts, clines, vlines, q, p, o, K, *,
             count)
 
 
-def ladder_counters():
-    """P16's last launch: bids taken from a gather lane's slot, of those
+def ladder_counters(kernel=None):
+    """The last launch of ``kernel`` (P16 or P17; default: whichever of
+    them launched last): bids taken from a gather lane's slot, of those
     re-read as stale, bids the commit warp read itself, its passes (one
     release fence each), and its clock64 cycles waiting for a lane's slot
     and in all; None before the first launch.  Synchronises."""
-    c = gs_ladder_uni.counters
+    c = (kernel or _last_ladder[0]).counters
     return None if c is None else dict(zip(
         ("from_lane", "stale", "self", "passes", "wait_cycles", "cycles"),
         c.tolist()))
 
 
-def _ladder_cuda(stage, unified, counts, clines, vlines, q, p, o, K):
-    """P16: the look-ahead kernel with GATHER_WARPS gather warps; P17: the
-    serial kernel (its row window in shared memory).  Returns stats, acc
-    and P16's counters (int64 [6], else None)."""
+def _ladder_cuda(stage, counts, clines, vlines, q, p, o, K):
+    """P16 and P17: the look-ahead kernel with GATHER_WARPS gather warps on
+    the queue, the price table as int32 bits and the owner table.  Returns
+    stats, acc and the counters (int64 [6])."""
     qcount, max_bids, cap = counts
     dev = clines.device
     lib = _build.load()
-    if unified:
-        _need(1 <= GATHER_WARPS <= 8, f"gs_ladder_uni: GATHER_WARPS = "
-              f"{GATHER_WARPS} outside 1-8")
-        counters = torch.empty(6, dtype=torch.int64, device=dev)
-    else:
-        _build.check_smem(8 * _window(K), dev, f"gs_ladder at K = {K}")
-        counters = None
+    _need(1 <= GATHER_WARPS <= 8, f"gs_ladder: GATHER_WARPS = {GATHER_WARPS} "
+          f"outside 1-8")
+    counters = torch.empty(6, dtype=torch.int64, device=dev)
     stats = torch.empty(2, dtype=torch.int32, device=dev)
     acc = torch.empty(1, dtype=torch.float32, device=dev)
     _build.check(lib.sslap_probe_ladder(
-        stage, int(unified), clines.data_ptr(), vlines.data_ptr(), K,
-        q.data_ptr(), p.data_ptr(), o.data_ptr(), qcount, max_bids, cap,
-        GATHER_WARPS, stats.data_ptr(), acc.data_ptr(),
-        0 if counters is None else counters.data_ptr(), _stream(clines)),
-        "gs_ladder_uni" if unified else "gs_ladder")
+        stage, clines.data_ptr(), vlines.data_ptr(), K, q.data_ptr(),
+        p.data_ptr(), o.data_ptr(), qcount, max_bids, cap, GATHER_WARPS,
+        stats.data_ptr(), acc.data_ptr(), counters.data_ptr(),
+        _stream(clines)), "gs_ladder")
     return stats, acc, counters
 
 
@@ -595,16 +708,18 @@ def _ladder_probe(name, line, unified):
         q, p, o = _views(unified, tables)
         counts = _ladder_args(counts, clines, vlines, q, p, o, K, stage)
         stats, acc, kernel.counters = _ladder_cuda(
-            stage, unified, counts, clines, vlines, q, p, o, K)
+            stage, counts, clines, vlines, q, p, o, K)
+        _last_ladder[0] = kernel
         return (*tables, stats, acc)
 
     kernel = ProbeKernel(name, line, "probe_ladder.cu", plain, cuda)
-    kernel.counters = None        # P16: its last launch's, on the device
+    kernel.counters = None        # its last launch's, on the device
     return kernel
 
 
 gs_ladder_uni = _ladder_probe("gs_ladder_uni", 838, unified=True)
 gs_ladder = _ladder_probe("gs_ladder", 997, unified=False)
+_last_ladder = [gs_ladder_uni]   # the ladder probe launched last
 
 
 # ---------------------------------------------------------------------------
@@ -674,6 +789,22 @@ def ladder_inputs(n, m, K, cap, *, unified, stage, max_bids=10 ** 5,
     o = np.full(up(m), -1, np.int32)
     return ((counts, *lines, q.reshape(-1, LINE), p.reshape(-1, LINE),
              o.reshape(-1, LINE)), dict(K=K, stage=stage))
+
+
+def store_inputs(n, pairs, seed):
+    """An instance of P15 (and P13) at any size, numpy: hbm [2 pairs, 128]
+    int32, rows 2r random (first entries of either sign), rows 2r + 1
+    random with the last entry making their sum 0 or 1, so every acc + 7
+    the loop stores at a position below 96 is a row id in range while
+    positions 64-95 read slots it wrote; q [max(n, 128)] int32, q[:n]
+    random ids."""
+    rng = np.random.default_rng(seed)
+    hbm = rng.integers(-2 ** 31, 2 ** 31, (2 * pairs, LINE), dtype=np.int64)
+    hbm[1::2, -1] = rng.integers(0, 2, pairs) - hbm[1::2, :-1].sum(axis=1)
+    hbm = ((hbm + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    q = np.zeros(max(n, LINE), np.int32)
+    q[:n] = rng.integers(0, pairs, n)
+    return hbm, q
 
 
 def _gs_inputs(prefetch=True, scan="full"):

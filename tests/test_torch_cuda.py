@@ -471,7 +471,8 @@ def test_ladder_kernels_on_conflict_instances(dev, monkeypatch, unified,
     """Repeated first columns (u mod 1024 over 20,000 rows; three queued
     rows on one column) at stage 3 run to max_bids = 60,000 with evictions
     on nearly every bid: kernel == plain version, P16 at every gather-warp
-    count (P17 has none); P16's counters add up to the bids."""
+    count, P17 (three tables) at the default; the look-ahead kernel's
+    counters add up to the bids."""
     if warps is not None:
         monkeypatch.setattr(PG, "GATHER_WARPS", warps)
     n = 20_000
@@ -486,10 +487,53 @@ def test_ladder_kernels_on_conflict_instances(dev, monkeypatch, unified,
         np.testing.assert_array_equal(_bits(a), _bits(b))
     bids = got[-2].tolist()[0]
     assert bids == (60_000 if stage == 3 else x[0][0])
-    if unified:
-        cnt = PG.ladder_counters()
-        assert cnt["from_lane"] + cnt["self"] == bids
-        assert cnt["stale"] <= cnt["from_lane"]
+    cnt = PG.ladder_counters(kernel)      # P16 and P17: one kernel
+    assert cnt["from_lane"] + cnt["self"] == bids
+    assert cnt["stale"] <= cnt["from_lane"]
+
+
+@pytest.mark.parametrize("segment", [None, 128])
+@pytest.mark.parametrize("n", [0, 1, 12, 64, 65, 96, 97, 130, 200, 1000,
+                               20_000])
+def test_store_kernel_matches_plain(dev, monkeypatch, n, segment):
+    """P15's store passes (segments of 512, or 128 to merge records at
+    small n) against its plain loop on the CPU, bit for bit, at n = 0 to
+    200 where positions 64-95 read slots the loop wrote, and on a prefix
+    of the scale instance (2**18 row pairs)."""
+    if segment is not None:
+        monkeypatch.setattr(PG, "STORE_SEGMENT", segment)
+    pairs = 2 ** 18 if n == 20_000 else 128
+    for seed in range(1 if n >= 1000 else 4):
+        hbm, q = PG.to_device(PG.store_inputs(n, pairs, seed), dev)
+        got = PG.qdma_store_via_dma((n,), hbm, q)
+        want = PG.qdma_store_via_dma.plain((n,), hbm.cpu(), q.cpu())
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("name,n,pos", [("qdma_store_datadep", 65, 64),
+                                        ("qdma_store_via_dma", 65, 64),
+                                        ("qdma_store_bitcast", 101, 100)])
+def test_queue_kernels_raise_at_a_written_bad_row_id(dev, name, n, pos):
+    """The loop kernel (P13, P14) and P15's kernel stop at a row id their
+    loop wrote outside the tables, report it, and the wrapper raises the
+    plain version's ValueError; the card runs the probe again afterwards."""
+    hbm = torch.zeros(16, PG.LINE, dtype=torch.int32)
+    hbm[4, 0], hbm[5, 0] = 5, -10
+    q = torch.zeros(1, PG.LINE, dtype=torch.int32)
+    q[0, 0] = 2
+    kernel = PG.PROBES[name]
+    with pytest.raises(ValueError) as plain:
+        kernel((n,), hbm, q)
+    assert f"position {pos} " in str(plain.value)
+    with pytest.raises(ValueError) as card:
+        kernel((n,), hbm.to(dev), q.to(dev))
+    assert str(card.value) == str(plain.value)
+    got = kernel((pos,), hbm.to(dev), q.to(dev))
+    want = kernel((pos,), hbm, q)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(problem="max")])

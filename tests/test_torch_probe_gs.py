@@ -19,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 from jax.experimental import pallas as pl
 
 from sslap_tpu_torch.ops import probe_gs as PG
@@ -191,9 +192,9 @@ def test_wrappers_reject_bad_inputs():
 
 
 # ---------------------------------------------------------------------------
-# The redesigned kernels' protocols on the CPU (csrc/probe_queue.cu's pump,
-# csrc/probe_ladder.cu's look-ahead kernel), bit for bit against the plain
-# versions.
+# The redesigned kernels' protocols on the CPU (csrc/probe_queue.cu's pump
+# and store passes, csrc/probe_ladder.cu's look-ahead kernel), bit for bit
+# against the plain versions.
 # ---------------------------------------------------------------------------
 
 
@@ -277,3 +278,112 @@ def test_ladder_inputs_first_columns():
     with pytest.raises(ValueError, match="snapshot"):
         PG.ladder_lookahead_mirror(1, (4, 10, 5), *args[1:3], *(
             np.zeros(8, np.int32),) * 3, 3, snapshot="x")
+
+
+def _bad_row_instance():
+    """n = 65 over hbm = zeros [16, 128] with hbm[4, 0] = 5, hbm[5, 0] =
+    -10, and q = zeros with q[0] = 2: iteration 0 reads row 2 and stores
+    acc + 7 = 7 at q[64 + 5]; each later one reads row 0 and stores at
+    q[64], so iteration 64 reads row -3 (acc = -10)."""
+    hbm = torch.zeros(16, PG.LINE, dtype=torch.int32)
+    hbm[4, 0], hbm[5, 0] = 5, -10
+    q = torch.zeros(1, PG.LINE, dtype=torch.int32)
+    q[0, 0] = 2
+    return hbm, q
+
+
+@pytest.mark.parametrize("name,n,pos,rid", [
+    ("qdma_store_datadep", 65, 64, -3), ("qdma_store_via_dma", 65, 64, -3),
+    # P14 writes float bits at [100, 108): iteration 100 reads 1.5 * 97's
+    ("qdma_store_bitcast", 101, 100,
+     int(np.float32(1.5 * 97).view(np.int32)))])
+def test_queue_loops_raise_at_a_written_bad_row_id(name, n, pos, rid):
+    """P13, P14 and P15 read slots their loop wrote; an id there outside
+    the tables raises ValueError naming the position and the id (before,
+    P13 and P15 returned out = -10, iteration 64 summing rows -6..-5)."""
+    hbm, q = _bad_row_instance()
+    before = q.clone()
+    msg = f"row id {rid} read at position {pos} "
+    with pytest.raises(ValueError, match=msg):
+        PG.PROBES[name]((n,), hbm, q)
+    assert torch.equal(q, before)
+    if name == "qdma_store_via_dma":
+        with pytest.raises(ValueError, match=msg):
+            PG.store_pass_mirror(n, hbm.numpy(), q.numpy().reshape(-1).copy(),
+                                 8)
+    out = PG.PROBES[name]((pos,), hbm, q)[-1]      # one iteration fewer
+    assert out.dtype == torch.int32
+
+
+def _store_against_plain(n, hbm, q, segment):
+    want = PG.qdma_store_via_dma((n,), torch.from_numpy(hbm),
+                                 torch.from_numpy(q))
+    got_q = q.copy()
+    out, count = PG.store_pass_mirror(n, hbm, got_q, hbm.shape[0] // 2,
+                                      segment=segment)
+    assert out.dtype == torch.int32 and out.tolist() == want[1].tolist()
+    np.testing.assert_array_equal(got_q.reshape(want[0].shape),
+                                  want[0].numpy())
+    return count
+
+
+def test_store_pass_mirror_at_the_reference_shape():
+    """P15's kernel protocol on the probe's own inputs (N = 12): one pass,
+    one segment, equal to the plain loop and to the reference's acc."""
+    args, _ = PG.make_inputs("qdma_store_via_dma")
+    count = _store_against_plain(12, args[1], args[2].reshape(-1).copy(),
+                                 None)
+    assert count == dict(passes=1, cut=0)
+
+
+@pytest.mark.parametrize("segment", [128, 160, 512])
+def test_store_pass_mirror_cuts_at_written_slots(segment):
+    """n from 65 to 200 over 40 seeds: positions 64-95 read slots the loop
+    wrote, so passes are cut; with segments of 128 and 160 the merge over
+    segment records runs too.  Equal to the plain loop throughout."""
+    cuts = 0
+    for seed in range(40):
+        n = 65 + 135 * seed // 39
+        hbm, q = PG.store_inputs(n, 128, seed)
+        cuts += _store_against_plain(n, hbm, q, segment)["cut"]
+    assert cuts > 0
+
+
+@settings(max_examples=60, deadline=None)
+@given(n=st.integers(0, 200), seed=st.integers(0, 2 ** 31),
+       segment=st.sampled_from([128, 192, 512]))
+def test_store_pass_mirror_matches_plain_on_drawn_instances(n, seed, segment):
+    hbm, q = PG.store_inputs(n, 128, seed)
+    _store_against_plain(n, hbm, q, segment)
+
+
+def test_store_grid():
+    assert [PG.store_blocks(n) for n in (0, 1, 512, 513, 2 ** 20)] == [
+        1, 1, 1, 2, 2048]
+    assert PG.store_blocks(200, 128) == 2
+
+
+@pytest.mark.parametrize("snapshot,seed", [("stalest", 0), ("random", 1)])
+@pytest.mark.parametrize("first", ["arange", "mod", "three"])
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_ladder_lookahead_mirror_on_three_tables(stage, first, snapshot,
+                                                 seed):
+    """P17 runs the look-ahead kernel on its three tables (queue, f32
+    prices, owner): the mirror on those tables equals P17's plain version
+    bit for bit."""
+    args, kw = PG.ladder_inputs(300, 300, 4, 301, unified=False, stage=stage,
+                                max_bids=2000, first=first, first_mod=8,
+                                prices=(np.random.default_rng(5).random(300)
+                                        * 4).astype(np.float32))
+    x = PG.to_device(args, "cpu")
+    want = PG.gs_ladder(*x, **kw)
+    q, p, o = (t.clone().reshape(-1) for t in x[3:])
+    counts = PG._ladder_args(x[0], x[1], x[2], q, p, o, kw["K"], stage)
+    stats, acc, cnt = PG.ladder_lookahead_mirror(
+        stage, counts, x[1], x[2], q.numpy(), p.numpy(), o.numpy(), kw["K"],
+        snapshot=snapshot, seed=seed)
+    for got, ref in zip((q, p, o), want[:3]):
+        _assert_same(got.numpy(), ref.reshape(-1).numpy())
+    assert stats.tolist() == want[3].tolist()
+    _assert_same(acc, want[4].numpy())
+    assert cnt["from_lane"] + cnt["self"] == stats[0]
