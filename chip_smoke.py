@@ -84,16 +84,19 @@ of which raises on failure (so the exit code is non-zero):
                  asserts; every probe kernel's device time per call there
                  (torch.profiler over 20 calls, and 20 calls back to back
                  where the wrapper does not synchronise) beside an empty
-                 kernel's (the launch floor); P15 at 2**20 positions over
-                 2**18 row pairs (256 MB, made from a seed)
-                 against its plain version over 20,000 positions and a
-                 numpy form over all, beside its byte bound; P6 (the pump)
-                 at n = 0, 1 and 17 against its plain
-                 version and the closed form, and P6 against P9 (start +
-                 wait) over 500,000 copies from a 512 MB table of distinct
-                 rows (entry (r, c) = 131 r + c, made on the card), each
-                 checked in closed form, with P6 and index_select of the
-                 same rows back to back; the ladder kernels (P16, P17),
+                 kernel's (the launch floor) and index_select's on the
+                 rows the probe copies; P15 at 2**20 positions over 2**18
+                 row pairs (256 MB, made from a seed), and P7, P10 and P11
+                 on the same queue and rows (P10's vbm and P11's price and
+                 owner tables made on the card from a seed), each against
+                 its plain version over 20,000 positions and a numpy form
+                 over all, beside its byte bounds; P6 (the pump) at n = 0,
+                 1 and 17 against its plain version and the closed form,
+                 and P6 and P9 (both on the pump kernel) over 500,000
+                 copies from a 512 MB table of distinct rows (entry (r, c)
+                 = 131 r + c, made on the card), each checked in closed
+                 form, with P6 and index_select of the same rows back to
+                 back; the ladder kernels (P16, P17),
                  stages 1-3, at n = m = 1M, K = 10: against the plain
                  version over 20,000 bids and in closed form over all 1M
                  bids, then on the two instances whose first columns
@@ -147,15 +150,17 @@ against its byte bound and index_select's; P16/P17's ms_device back to
 back, ns/bid on the conflict instances, the byte and float-chain bounds
 at 1M (two dependent adds a bid, 4 cycles each at the card's maximum SM
 clock) and the share of each reached, and their counters; every probe's
-kernel_us, its kernel's device time per call from the profiler; P15's
-scale_2e20 and launch_floor_us), its bound (bound_ms, bound_by,
+kernel_us, its kernel's device time per call from the profiler, and
+library_kernel_us, index_select's on the rows it copies; P7, P10, P11 and
+P15's scale_2e20, P15's launch_floor_us), its bound (bound_ms, bound_by,
 bound_bytes: each input read once and each output written once on that
 run's data, over 3.35 TB/s, or its operations over 67 TFLOP/s) and the
 time of one PyTorch call computing the same function where there is one
 (library_ms: scatter_reduce_ amax for K2's resolve, index_select for the
-row copies of P1-P3, P6 and P9, whose entries also carry ms_device and
-library_ms_device, the device time per call of 20 calls back to back;
-else null).  DK's entry is at C = 131,072
+row copies of P1-P3 and P6-P15 (P10: of both tables), whose entries also
+carry library_ms_device, the device time per call of 20 calls back to
+back, and (P1-P6, P9, whose wrappers do not synchronise) ms_device; else
+null).  DK's entry is at C = 131,072
 (the first round of a chunk), with its C = 256 numbers beside; K1's
 carries its batched entry's numbers as batched_* (a chunk of 32 instances,
 131,072 rows, as mode="device" runs it; all 256 instances as
@@ -181,9 +186,9 @@ trees in turns (A, B, B, A) in one process sequence on one card.
 reference shape, with index_select beside it, and both P6's and
 index_select's kernels' device time per call under torch.profiler; the
 launch floor and every probe kernel's device time per call at the
-reference shape; P15 at scale; P6 at n = 0, 1, 17 and P6/P9 at 500,000
-copies; the ladder kernels at 1M rows, closed form and conflict
-instances) and prints them as one line
+reference shape, beside index_select's; P15, P7, P10 and P11 at scale; P6
+at n = 0, 1, 17 and P6/P9 at 500,000 copies; the ladder kernels at 1M
+rows, closed form and conflict instances) and prints them as one line
 "PROBES LABEL {...}"; A/B between trees as --k12 (a tree whose
 ladder_inputs has no first= skips the conflict instances).
 
@@ -1327,26 +1332,53 @@ def _probe_bound(name, x, out):
     return _bound(read + written)
 
 
-def _probe_rows(name, x):
-    """The rows a copy probe copies (P1-P3: rows row, row + 1; P6, P9:
-    rows 2i, 2i + 1 for i < n), else None."""
+# The queue probes' loops (P7-P15) and the ones that copy rows 2 rid + 1
+_LOOP_PROBES = ("while_qtable_dma", "while_qtable_dma_store", "qdma_dual",
+                "qdma_alias3", "qdma_alias2", "qdma_store_datadep",
+                "qdma_store_bitcast", "qdma_store_via_dma")
+
+
+def _loop_ids(name, x):
+    """The row ids a queue probe's loop reads on the wrapper's arguments
+    ``x`` at the reference shapes (n = 12: no position reads a slot the
+    loop wrote but P8's pushed ones, q[p mod n] + 20 (p // n) for p in [n,
+    n + 4))."""
+    n = x[0][0]
+    q = (x[3] if name == "qdma_dual" else x[2]).reshape(-1).long()
+    ids = q[:n]
+    if name == "while_qtable_dma_store" and n:
+        p = torch.arange(n, n + 4, device=q.device)
+        ids = torch.cat([ids, q[p % n] + 20 * (p // n)])
+    return ids
+
+
+def _probe_copies(name, x):
+    """The rows a copy probe copies, as (table, row indices) pairs: P1-P3
+    rows row, row + 1; P6, P9 rows 2i, 2i + 1 for i < n; P7-P15 rows 2 rid,
+    2 rid + 1 of each position's id (P10: of hbm and of vbm); else None."""
     if name.startswith("dma_"):
-        return torch.arange(x[0][0], x[0][0] + 2, device=x[1].device)
+        return [(x[1], torch.arange(x[0][0], x[0][0] + 2, device=x[1].device))]
     if name in ("while_double_buffer", "sem_2d_dynamic"):
-        return torch.arange(2 * x[0][0], device=x[1].device)
+        return [(x[1], torch.arange(2 * x[0][0], device=x[1].device))]
+    if name in _LOOP_PROBES:
+        ids = _loop_ids(name, x)
+        rows = torch.stack([2 * ids, 2 * ids + 1], dim=1).reshape(-1)
+        return [(t, rows) for t in ((x[1], x[2]) if name == "qdma_dual"
+                                    else (x[1],))]
     return None
 
 
 def _probe_library_ms(name, x):
     """One PyTorch call that computes the probe's copy, index_select of
-    the rows it copies: (median CUDA-event ms of one call, device ms per
-    call of PROBE_B2B calls back to back), or None for the others."""
-    rows = _probe_rows(name, x)
-    if rows is None:
+    the rows it copies (P10: one for each table): (median CUDA-event ms
+    of one call, device ms per call of PROBE_B2B calls back to back), or
+    None for the others."""
+    copies = _probe_copies(name, x)
+    if copies is None:
         return None
-    torch.index_select(x[1], 0, rows)           # warm up: first-call setup
+    run = lambda: [torch.index_select(t, 0, r) for t, r in copies]  # noqa
+    run()                                       # warm up: first-call setup
     torch.cuda.synchronize()
-    run = lambda: torch.index_select(x[1], 0, rows)  # noqa: E731
     return _timed(run)[1], _device_ms(tuple, run, PROBE_B2B)
 
 
@@ -1373,10 +1405,11 @@ def _probe_against_plain(name, dev):
              else _probe_bound(name, x, got))
     lib = None if bound is None else _probe_library_ms(name, x)
     lib_ms, b2b = None, None
-    if lib is not None:
-        lib_ms = lib[0]
+    if lib is not None:           # back to back only where the wrapper
+        lib_ms = lib[0]           # does not synchronise
         b2b = dict(kernel=_device_ms(tuple, lambda: kernel(*x, **kw),
-                                     PROBE_B2B), library=lib[1])
+                                     PROBE_B2B)
+                   if name in _B2B_PROBES else None, library=lib[1])
     log(f"[9 probes] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
         f"exact, the reference's asserts hold; bound {bound}, library "
         f"{lib_ms}, back to back {b2b}")
@@ -1396,13 +1429,14 @@ def _pump_closed_form(n):
                       + PG.LINE * (PG.LINE - 1) // 2 * n)
 
 
-def _pump_against_start_wait(dev):
+def _pump_at_scale(dev):
     """P6 (the pump) at n = 0, 1 and 17 against its plain version and the
-    closed form; then P6 and P9 (start + wait) over PROBE_ITERS 2-row
-    copies from a 512 MB table (~10x the L2) of distinct rows, turn about,
-    each checked in closed form; P6 and index_select of the same rows back
-    to back.  Returns ns/iteration per probe and P6's and index_select's
-    ms at scale."""
+    closed form; then P6 and P9 (one function, so both run the pump
+    kernel; P9's TPU loop waits for each copy before it starts the next)
+    over PROBE_ITERS 2-row copies from a 512 MB table (~10x the L2) of distinct
+    rows, turn about, each checked in closed form; P6 and index_select of
+    the same rows back to back.  Returns ns/iteration per probe and P6's
+    and index_select's ms at scale."""
     for n in (0, 1, 17):
         x = _distinct_rows(2 * n + 2, dev)
         got = PG.while_double_buffer((n,), x)[0]
@@ -1432,8 +1466,8 @@ def _pump_against_start_wait(dev):
     del hbm
     log(f"[9 probes] P6 == plain == closed form at n = 0, 1, 17; "
         f"{PROBE_ITERS} copies of 2 rows from a {2 * PROBE_ITERS} x 128 "
-        f"int32 table of distinct rows: P6 pump "
-        f"{ns['while_double_buffer']} ns/iter, P9 start+wait "
+        f"int32 table of distinct rows: P6 "
+        f"{ns['while_double_buffer']} ns/iter, P9 "
         f"{ns['sem_2d_dynamic']} ns/iter; closed form holds; P6 rows 2i "
         f"{at_scale}")
     return ns, at_scale
@@ -1647,14 +1681,23 @@ def _launch_floor_us(dev):
 
 def _probe_device(name, dev):
     """Probe ``name`` at the reference shape: its kernel's device time per
-    call (kernel_us, profiler) and, where the wrapper does not
-    synchronise, the device time per call of PROBE_B2B calls back to back
-    (ms_device; P16-P17 through their launch alone)."""
+    call (kernel_us, profiler), beside that of index_select's kernels on
+    the rows it copies (library_kernel_us, where it copies rows) and, where
+    the wrapper does not synchronise, the device time per call of
+    PROBE_B2B calls back to back (ms_device; P16-P17 through their launch
+    alone)."""
     kernel = PG.PROBES[name]
     args, kw = PG.make_inputs(name)
     x = PG.to_device(args, dev)
     run = lambda: kernel(*x, **kw)  # noqa: E731
     out = dict(kernel_us=_own_kernel_us(run))
+    copies = _probe_copies(name, x)
+    if copies is not None:        # kernels only: an aten:: operator's
+        split = _kernel_us(       # device time repeats its kernels'
+            lambda: [torch.index_select(t, 0, r) for t, r in copies])
+        out["library_kernel_us"] = sum(
+            us for key, us in split.items()
+            if not key.startswith(("aten::", "Activity Buffer")))
     if name in _B2B_PROBES:
         out["ms_device"] = _device_ms(tuple, run, PROBE_B2B)
     elif name.startswith(("gs_uni", "gs_ladder")):
@@ -1757,6 +1800,127 @@ def _store_at_scale(dev):
     return out
 
 
+# P7, P10 and P11 at STORE_N positions: their tables in the wrappers' order
+_QUEUE_SCALE = {"while_qtable_dma": ("hbm", "q"),
+                "qdma_dual": ("hbm", "vbm", "q"),
+                "qdma_alias3": ("hbm", "q", "pt", "ot")}
+
+
+def _queue_scale_tables(dev):
+    """P7, P10 and P11's instance at STORE_N positions over STORE_PAIRS row
+    pairs: store_inputs' hbm and q (P15's, seed 9) and, made on the card
+    from seed 10, vbm (hbm's shape, f32 integers in [-64, 64): every
+    partial row sum exact, in any order), pt (STORE_PAIRS f32 integers in
+    [-10**6, 10**6)) and ot (STORE_PAIRS int32)."""
+    hbm, q = PG.to_device(PG.store_inputs(STORE_N, STORE_PAIRS, 9), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    draw = lambda lo, hi, shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=g, device=dev, dtype=torch.int64)
+    return dict(hbm=hbm, q=q,
+                vbm=draw(-64, 64, hbm.shape).to(torch.float32),
+                pt=draw(-10 ** 6, 10 ** 6, (STORE_PAIRS,)).to(torch.float32),
+                ot=draw(-2 ** 31, 2 ** 31, (STORE_PAIRS,)).to(torch.int32))
+
+
+@np.errstate(over="ignore")
+def _queue_forms(tables):
+    """P7, P10 and P11's out in numpy over all STORE_N positions: the
+    wrapped sums of row 2 rid (uint32), of the vbm row sums (exact integers,
+    to int32) and of int32(pt) and ot at each position's id; and the
+    number of distinct ids."""
+    ids = tables["q"][:STORE_N].cpu().numpy()
+    rows = tables["hbm"][0::2].cpu().numpy().view(np.uint32).sum(
+        axis=1, dtype=np.uint32)[ids].sum(dtype=np.uint32)
+    vsum = tables["vbm"][0::2].double().sum(dim=1).to(torch.int32)
+    vsum = vsum.cpu().numpy().view(np.uint32)[ids].sum(dtype=np.uint32)
+    pt = tables["pt"].to(torch.int32).cpu().numpy().view(np.uint32)
+    ot = tables["ot"].cpu().numpy().view(np.uint32)
+    extra = pt[ids].sum(dtype=np.uint32) + ot[ids].sum(dtype=np.uint32)
+    forms = {"while_qtable_dma": rows, "qdma_dual": rows + vsum,
+             "qdma_alias3": rows + extra}
+    return ({k: np.array([v]).view(np.int32) for k, v in forms.items()},
+            np.unique(ids).size)
+
+
+def _queue_device_ms(name, args):
+    """P7, P10 or P11's pass kernel alone (sslap_probe_queue, no error word
+    read back), PROBE_B2B launches back to back at STORE_N positions (the
+    tables are only read): device ms per launch; None for a tree without
+    the pass kernel."""
+    if not hasattr(PG, "QUEUE_SEGMENT"):
+        return None
+    lib = _build.load()
+    t = dict(zip(_QUEUE_SCALE[name], args))
+    variant = PG._QUEUE_VARIANTS[name]
+    blocks = PG.queue_blocks(PG.queue_total(variant, STORE_N))
+    limit = t["hbm"].shape[0] // 2
+    if "pt" in t:
+        limit = min(limit, t["pt"].numel())
+    ptr = lambda k: t[k].data_ptr() if k in t else 0  # noqa: E731
+    stream = torch.cuda.current_stream(t["hbm"].device).cuda_stream
+
+    def prepare():
+        return (torch.tensor([0, PG.NO_BAD], dtype=torch.int64,
+                             device=t["hbm"].device),)
+
+    def run(out):
+        _build.check(lib.sslap_probe_queue(
+            variant, ptr("hbm"), ptr("vbm"), ptr("q"), ptr("pt"), ptr("ot"),
+            STORE_N, limit, PG.QUEUE_SEGMENT, blocks, out.data_ptr(),
+            stream), name)
+    return _device_ms(prepare, run, PROBE_B2B)
+
+
+def _queue_at_scale(dev):
+    """P7, P10 and P11 at STORE_N positions over STORE_PAIRS row pairs
+    (_queue_scale_tables): kernel == plain version (on CPU copies) over
+    STORE_PLAIN positions, kernel == the numpy form over all (the tables
+    unchanged); one call's time (events), the kernel's device time back to
+    back (ms_device) and from the profiler (kernel_ms; one call's events
+    where a call takes over 50 ms), against two byte bounds: per position
+    (bound_ms_per_position: the id's 4 bytes and 512 of row 2 rid, P10 also
+    512 of its vbm row, P11 a 32-byte sector each of the price and the
+    owner) and each distinct row pair read once (bound_ms: the ids, and per
+    distinct id 512 bytes, P10 1024, P11 512 + 8).  {name: numbers}."""
+    tables = _queue_scale_tables(dev)
+    forms, distinct = _queue_forms(tables)
+    host = {k: t.cpu() for k, t in tables.items()}
+    out = {}
+    for name, order in _QUEUE_SCALE.items():
+        kernel = PG.PROBES[name]
+        args = [tables[k] for k in order]
+        got = kernel((STORE_PLAIN,), *args)
+        want = kernel.plain((STORE_PLAIN,), *(host[k] for k in order))
+        if not all(_same_bits(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} over {STORE_PLAIN} positions: "
+                                 f"kernel != plain")
+        res, ms = _events_ms(lambda: kernel((STORE_N,), *args))
+        same = zip(res[:-1], (tables[k] for k in order
+                              if k not in ("hbm", "vbm")))
+        if not (np.array_equal(res[-1].cpu().numpy(), forms[name])
+                and all(_same_bits(a, b.reshape(a.shape)) for a, b in same)):
+            raise AssertionError(f"{name} at n = {STORE_N}: not the numpy "
+                                 f"form")
+        kernel_ms = (ms if ms > 50 else 1e-3 * _own_kernel_us(
+            lambda: kernel((STORE_N,), *args), reps=5))
+        ms_device = None if ms > 50 else _queue_device_ms(name, args)
+        row = {"qdma_dual": 1024, "qdma_alias3": 512 + 64}.get(name, 512)
+        per_position = 1e3 * (STORE_N * (4 + row) + 4) / HBM_BYTES_PER_S
+        once = {"qdma_dual": 1024, "qdma_alias3": 512 + 8}.get(name, 512)
+        bound = _bound(4 * STORE_N + distinct * once + 4)
+        timed = ms_device or kernel_ms
+        out[name] = dict(ms=ms, kernel_ms=kernel_ms, ms_device=ms_device,
+                         distinct_pairs=distinct, **bound,
+                         bound_share=bound["bound_ms"] / timed,
+                         bound_ms_per_position=per_position,
+                         per_position_share=per_position / timed)
+        log(f"[9 probes] {name} at n = {STORE_N} over {STORE_PAIRS} row "
+            f"pairs: == plain over {STORE_PLAIN} positions, == the numpy "
+            f"form; {out[name]}")
+    return out
+
+
 def probe_timings():
     """Phase 9's probe measurements: P6 back to back at the probe's shape
     beside index_select, an empty kernel's device time (the launch floor),
@@ -1767,7 +1931,7 @@ def probe_timings():
     out = {}
     args, _ = PG.make_inputs("while_double_buffer")
     x = PG.to_device(args, dev)
-    rows = _probe_rows("while_double_buffer", x)
+    rows = _probe_copies("while_double_buffer", x)[0][1]
     out["while_double_buffer"] = dict(
         ms_device=_device_ms(tuple, lambda: PG.while_double_buffer(*x),
                              PROBE_B2B),
@@ -1779,7 +1943,8 @@ def probe_timings():
     out["probe_device"] = {key: _probe_device(_probe_names(kernel)[-1], dev)
                            for key, kernel in PG.KERNELS.items()}
     out["store_scale"] = _store_at_scale(dev)
-    out["pump"], out["pump_500k"] = _pump_against_start_wait(dev)
+    out["queue_scale"] = _queue_at_scale(dev)
+    out["pump"], out["pump_500k"] = _pump_at_scale(dev)
     ns, conflicts, counters = _ladder_at_scale(dev)
     out["ladder_ns_per_bid_1M"] = {f"{k} {s}": v for (k, s), v in ns.items()}
     out["ladder_conflicts_ns_per_bid"] = conflicts
@@ -1811,7 +1976,8 @@ def phase_probes():
     per_probe = {name: _probe_against_plain(name, dev) for name in PG.ORDER}
     floor_us = _launch_floor_us(dev)
     store_scale = _store_at_scale(dev)
-    pump, pump_500k = _pump_against_start_wait(dev)
+    queue_scale = _queue_at_scale(dev)
+    pump, pump_500k = _pump_at_scale(dev)
     ladder, conflicts, counters = _ladder_at_scale(dev)
     entries = []
     for key, kernel in PG.KERNELS.items():
@@ -1825,11 +1991,14 @@ def phase_probes():
                      ms=k_ms, plain_ms=p_ms, **bound, library_ms=lib_ms)
         entry.update(device)
         if b2b is not None:
-            entry["ms_device"] = b2b["kernel"]
+            if b2b["kernel"] is not None:
+                entry["ms_device"] = b2b["kernel"]
             entry["library_ms_device"] = b2b["library"]
         if kernel is PG.qdma_store_via_dma:
             entry["launch_floor_us"] = floor_us
             entry["scale_2e20"] = store_scale
+        if kernel.name in queue_scale:
+            entry["scale_2e20"] = queue_scale[kernel.name]
         if kernel.name in pump:
             entry["ns_per_iter_500k"] = pump[kernel.name]
         if kernel is PG.while_double_buffer:

@@ -102,13 +102,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     # P4-P5: table, idx, widx, out, stream
     lib.sslap_probe_lane.restype = c_int
     lib.sslap_probe_lane.argtypes = [p, i64, i64, p, p]
-    # P7-P14: variant, hbm, vbm, q, pt, ot, n, limit, out, stream
+    # P7, P8, P10-P12, P14: variant, hbm, vbm, q, pt, ot, n, limit, seg,
+    # blocks, out, stream
     lib.sslap_probe_queue.restype = c_int
-    lib.sslap_probe_queue.argtypes = [c_int, p, p, p, p, p, i32, i32, p, p]
-    # P15: hbm, q, n, limit, seg, blocks, scratch, arrived, out, stream
+    lib.sslap_probe_queue.argtypes = [c_int, p, p, p, p, p, i32, i32, i32,
+                                      c_int, p, p]
+    # P13, P15: hbm, q, n, limit, seg, blocks, scratch, arrived, out, stream
     lib.sslap_probe_store.restype = c_int
     lib.sslap_probe_store.argtypes = [p, p, i32, i32, i32, c_int, p, p, p, p]
-    # P6: hbm, n, blocks, out, stream
+    # P6, P9: hbm, n, blocks, out, stream
     lib.sslap_probe_pump.restype = c_int
     lib.sslap_probe_pump.argtypes = [p, i32, c_int, p, p]
     # P16-P17: stage, clines, vlines, K, q, price bits, o, qcount,

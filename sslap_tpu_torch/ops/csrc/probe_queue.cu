@@ -1,7 +1,6 @@
-// P6-P15: the queue-driven copy loops of the GS kernel (sm_90a).  P7-P14
-// are one single-warp loop kernel whose template variant selects the
-// probe; P6 (pump_kernel) and P15 (store_pass_kernel) have kernels of their
-// own, below.
+// P6-P15: the queue-driven copy loops of the GS kernel (sm_90a), as three
+// kernels: pump_kernel (P6 and P9), queue_pass_kernel (P7, P8, P10-P12 and
+// P14, a template variant each) and store_pass_kernel (P13 and P15).
 //
 // Replaces benchmarks/probe_mosaic_gs.py:
 //   P6  while_double_buffer (:194)  rows 2i, two slots, the next copy
@@ -16,34 +15,66 @@
 //   P13 qdma_store_datadep (:649)   a store whose index is copied data
 //   P14 qdma_store_bitcast (:713)   a store of f32 -> i32 bitcast values
 //   P15 qdma_store_via_dma (:770)   P13's row written back by a bulk copy
-// Each iteration of P7-P14 copies rows [2 r, 2 r + 2) of a [rows, 128]
-// int32 table (1 KB) into shared memory with cp.async.bulk on an mbarrier
-// -- one barrier per slot with its own phase parity, the TPU's sem.at[slot]
-// -- and adds row 0 (P13: row 1) to an int32 accumulator (wrapping).
-// Tables are flat int32/f32 in global memory, read and written by lane 0
-// with plain scalar accesses; the probes' one-hot lane reads and blend
-// stores were Mosaic workarounds (see probe_lane.cu).
+// Each TPU loop copies rows [2 r, 2 r + 2) of a [rows, 128] int32 table an
+// iteration and adds row 2 r (P13, P15: row 2 r + 1) to an int32
+// accumulator (wrapping).  What they compute needs no loop:
+//   P6, P9    out = the sum over i < n of row 2i: one function, so P9
+//             runs P6's pump_kernel;
+//   P7        out = the sum over positions p of row 2 rid_p, rid_p = q[p];
+//   P10       P7 + int32(the f32 sum of row 2 rid_p of vbm);
+//   P11, P12  P7 + int32(pt[rid_p]) (P11: + ot[rid_p]);
+//   P8        P7 over n + 4 positions (n > 0): iteration i < 4 pushes
+//             q[n + i] = rid_i + 20, which position n + i reads;
+//   P14       P7, and iteration i stores the bits of 1.5 (i + 1) at
+//             q[100 + i mod 8];
+//   P13, P15  a scan whose stores land where later positions read (below;
+//             one function, so P13 runs P15's store_pass_kernel).
+// Tables are flat int32/f32 in global memory.  Row ids: a loop checks each
+// id it reads against `limit` (rows / 2, and the price table's size for
+// P11-P12) and stops at the first one outside [0, limit) in position
+// order, reading no row of that position or a later one of its segment;
+// the kernel reports (position, id) and the wrapper raises.  P6 and P9
+// read no queue (rows 2i, checked by the wrapper).
 //
-// Row ids.  P8, P13 and P14 store into the queue, and a later iteration
-// reads such a slot as its row id (P13's acc + 7 at [64, 96), P14's float
-// bits at [100, 108), P8's pushes), so the wrapper cannot check every id
-// before the launch.  Each loop checks the id it reads against `limit`
-// (rows / 2, and the price table's size for P11-P12) and, at the first id
-// outside [0, limit), stops without touching the tables and reports
-// (position, id) in out[1..2] (out[1] = -1 when every id was in range);
-// the wrapper reads them back and raises.  P9 reads no queue (row i,
-// checked by the wrapper).
+// queue_pass_kernel.  The ids the loops write are known without the loop:
+// position n + i of P8 reads rid_i + 20, so rid_p = q[p mod n] + 20 (p / n)
+// for p >= n (a chain when n < 4), and position p in [100, 108) of P14 reads
+// what iteration p - 4 stored, the bits of 1.5 (p - 3); no other position
+// reads a written slot.  So each position's id is read from a slot no
+// position writes, or computed, and the positions are independent but for
+// the stop at a bad id.  They are cut into segments of `seg` (a multiple of
+// 32), one one-warp block each, and a warp takes its segment in passes of
+// 32 positions, a lane each:
+//   - the lanes read their ids together (one 128-byte line a pass) or
+//     compute them; a ballot finds the first out of range, and the pass
+//     keeps the positions before it;
+//   - P11-P12's lanes gather pt[rid] and ot[rid];
+//   - the warp loads each kept position's row 2 rid with one 16-byte load
+//     a lane (coalesced), 16 rows in flight (P10: 8, and their vbm rows),
+//     and each lane adds its share into its own wrapped partial (the order
+//     of additions mod 2**32 does not matter).  P10's f32 row sum has one
+//     fixed order: a lane's 4 entries left to right, then a butterfly over
+//     the lanes, xor 16, 8, 4, 2, 1 (exact while the values and partial
+//     sums are integers below 2**24, which the plain version's sum needs
+//     too);
+//   - at a bad id the warp records (position, id) and stops.
+// A warp reduces its partials once (__reduce_add_sync).  One block stores
+// out and the error word; more add into out by a uint32 atomicAdd (the
+// wrapper zeroes it) and keep the lowest (position << 32 | id) by a 64-bit
+// atomicMin, so the report is the first bad id in position order (the
+// segments after it run on, on their own in-range ids).  Block 0 applies
+// the loop's stores to the queue at its end (P8's four pushes, P14's eight
+// slots): no position reads them.  Bound on an H100: bytes, per position 4
+// (the id) + 512 (row 2 rid; P10 + 512 of vbm; P11 + a 32-byte sector each
+// of the price and the owner, P12 of the price) over 3.35 TB/s; at the
+// reference shape (n = 12, one pass) it is latency: two dependent global
+// round trips (the ids, then the rows) between the launch and the store.
 //
-// Bound of P7-P14: a chain of global round trips per iteration (queue slot
-// -> copy -> barrier), latency not bandwidth: 1 KB an iteration is nothing
-// to HBM.  P9 keeps that chain (start + wait) as the yardstick of a copy's
-// round trip.
-//
-// P6 computes out[0] = sum over i < n of row 2i's 128 entries, modulo
-// 2**32: the TPU's pump existed to keep the next copy in flight while one
-// is summed.  Its bound on an H100 is bytes, 512 per iteration (only row
-// 2i is read), but one copy in flight on one warp makes it a latency
-// chain (~320 ns an iteration, 1000x off the byte bound at 500k
+// P6 (and P9) computes out[0] = sum over i < n of row 2i's 128 entries,
+// modulo 2**32: the TPU's pump existed to keep the next copy in flight
+// while one is summed.  Its bound on an H100 is bytes, 512 per iteration
+// (only row 2i is read), but one copy in flight on one warp makes it a
+// latency chain (~320 ns an iteration, 1000x off the byte bound at 500k
 // iterations).  Here the iterations are spread over a persistent grid of
 // min(SMs, ceil(n / 64)) blocks, each a contiguous range (block b takes [n
 // b / B, n (b + 1) / B)).  In a block, one producer thread keeps a ring of
@@ -65,14 +96,15 @@
 // of the byte bound; 3.1 us a call back to back at n = 16, where
 // index_select takes 2.4.
 //
-// P15 is not a loop.  With tgt_i = 64 + (hbm[2 rid_i, 0] mod 32), s_i =
-// the sum of row 2 rid_i + 1 and acc_i the exclusive prefix sum of s (all
-// wrapping), iteration i stores acc_i + 7 at q[tgt_i]; out = acc_n, and the
-// final q[t] is acc_i + 7 of the last i with tgt_i = t.  rid_i = q[i] as the
-// earlier iterations left it, so only positions in [64, 96) can read a
-// slot the loop wrote.  store_pass_kernel: the positions are cut into
-// segments of `seg` (a multiple of 32, >= 128), one one-warp block each.
-// A warp takes its segment in passes of up to 32 positions, a lane each:
+// P15 (and P13) is not a loop.  With tgt_i = 64 + (hbm[2 rid_i, 0] mod
+// 32), s_i = the sum of row 2 rid_i + 1 and acc_i the exclusive prefix sum
+// of s (all wrapping), iteration i stores acc_i + 7 at q[tgt_i]; out =
+// acc_n, and the final q[t] is acc_i + 7 of the last i with tgt_i = t.
+// rid_i = q[i] as the earlier iterations left it, so only positions in
+// [64, 96) can read a slot the loop wrote.  store_pass_kernel: the
+// positions are cut into segments of `seg` (a multiple of 32, >= 128), one
+// one-warp block each.  A warp takes its segment in passes of up to 32
+// positions, a lane each:
 //   - the lanes read their queue slots (segment 0 from the queue's first
 //     128-entry row, held in shared memory with the pass's stores applied;
 //     every other slot is never written) and check the ids;
@@ -91,8 +123,9 @@
 // cp.async.bulk shared -> global + wait_group.read (the probe's store by
 // bulk copy, once a call instead of once an iteration): at the reference
 // shape queue read -> row loads -> scan -> one bulk store, three dependent
-// round trips, the last not waited for beyond its read of the row.  With more, each warp writes a record (its sum, its first bad id,
-// and per target its last position and the acc there relative to the
+// round trips, the last not waited for beyond its read of the row.  With
+// more, each warp writes a record (its sum, its first bad id, and per
+// target its last position and the acc there relative to the
 // segment), and the last block to arrive (a counter the wrapper zeroes)
 // scans the segment sums, takes per target the last segment that wrote it,
 // rebuilds the row from the queue and writes it back the same way.  Bound
@@ -109,119 +142,131 @@
 namespace {
 
 constexpr int kLine = 128;
-constexpr uint32_t kCopy = 2 * kLine * 4;     // one 2-row copy, bytes
 constexpr unsigned kFull = 0xFFFFFFFFu;
 enum Variant {
-  kPump = 6, kQueue, kPush, kFlip, kDual, kAlias3, kAlias2, kDataDep,
-  kBitcast
+  kQueue = 7, kPush = 8, kDual = 10, kAlias3 = 11, kAlias2 = 12,
+  kBitcast = 14
 };
+constexpr long long kNoBad = 0x7FFFFFFFFFFFFFFFll;   // the error word: none
 
-__device__ __forceinline__ uint32_t row_sum(const int32_t* row, int lane) {
-  uint32_t s = 0;
-  for (int i = lane; i < kLine; i += 32) s += static_cast<uint32_t>(row[i]);
-  return __reduce_add_sync(kFull, s);
+// The positions variant V's loop runs: P8 pushes four more when n > 0.
+__host__ __device__ inline int64_t queue_total(int v, int32_t n) {
+  return v == kPush && n > 0 ? static_cast<int64_t>(n) + 4 : n;
 }
 
-// Lane-strided partial sums, then a butterfly; every lane gets the same
-// value.  Exact while the row's values and sums are integers below 2**24.
-__device__ __forceinline__ float row_sum_f(const float* row, int lane) {
-  float s = 0.0f;
-  for (int i = lane; i < kLine; i += 32) s += row[i];
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
-  return s;
-}
-
-__device__ __forceinline__ int32_t floor_mod(int32_t a, int32_t b) {
-  const int32_t r = a % b;
-  return r < 0 ? r + b : r;
-}
-
+// The row id position p reads, as the loop leaves the queue there (see
+// the header): P8's pushed slots and P14's written slots forwarded, every
+// other slot read as the call found it (no position writes it).
 template <int V>
-__global__ void probe_queue_kernel(const int32_t* __restrict__ hbm,
-                                   const float* __restrict__ vbm, int32_t* q,
-                                   const float* pt, const int32_t* ot,
-                                   int32_t n, int32_t limit, int32_t* out) {
-  __shared__ __align__(128) int32_t scr[2][2 * kLine];  // two copy slots
-  __shared__ __align__(128) float vscr[2 * kLine];      // P10's f32 copy
-  __shared__ __align__(8) uint64_t bar[3];    // slot 0, slot 1, the f32 copy
-  const int lane = threadIdx.x;
-  if (lane == 0)
-    for (int b = 0; b < 3; ++b) sslap::mbar_init(&bar[b]);
-  __syncwarp();
-  uint32_t phases = 0;                        // bit b: bar[b]'s next parity
-  auto start = [&](int slot, int32_t r) {     // lane 0 only
-    sslap::mbar_expect_tx(&bar[slot], kCopy);
-    sslap::bulk_g2s(scr[slot], hbm + static_cast<int64_t>(r) * 2 * kLine,
-                    kCopy, &bar[slot]);
-  };
-  auto wait = [&](int b) {
-    sslap::mbar_wait(&bar[b], (phases >> b) & 1u);
-    phases ^= 1u << b;
-  };
-  uint32_t acc = 0;
-  int32_t bad = -1, bad_id = 0;               // the first id out of range
+__device__ __forceinline__ int32_t queue_id(const int32_t* q, int32_t n,
+                                            int64_t p) {
+  if (V == kPush && p >= n)                   // rid_(p - n) + 20, chained
+    return static_cast<int32_t>(
+        static_cast<uint32_t>(__ldcg(q + p % n)) +
+        20u * static_cast<uint32_t>(p / n));
+  if (V == kBitcast && p >= 100 && p < 108)   // stored by iteration p - 4
+    return __float_as_int(1.5f * static_cast<float>(p - 3));
+  return __ldcg(q + p);
+}
 
-  {
-    int32_t tail = n;
-    for (int32_t i = 0; i < (V == kPush ? tail : n); ++i) {
-      const int slot = V == kFlip ? (i & 1) : 0;
-      int32_t rid = i;
-      if (lane == 0) {                        // lane 0 checks, then copies
-        if (V != kFlip) rid = q[i];
-        if (V == kFlip || (rid >= 0 && rid < limit)) {
-          start(slot, rid);
-          if (V == kDual) {
-            sslap::mbar_expect_tx(&bar[2], kCopy);
-            sslap::bulk_g2s(vscr,
-                            vbm + static_cast<int64_t>(rid) * 2 * kLine,
-                            kCopy, &bar[2]);
-          }
+// P7, P8, P10-P12, P14, one warp a block, block b the positions [b seg,
+// (b + 1) seg) (see the header).  out[0]: the sum in its low 32 bits;
+// out[1]: (first bad position << 32 | its id), or kNoBad.
+template <int V>
+__global__ void __launch_bounds__(32)
+    queue_pass_kernel(const int32_t* __restrict__ hbm,
+                      const float* __restrict__ vbm, int32_t* q,
+                      const float* __restrict__ pt,
+                      const int32_t* __restrict__ ot, int32_t n,
+                      int32_t limit, int32_t seg, long long* out) {
+  constexpr int G = V == kDual ? 8 : 16;     // rows in flight a lane
+  const int lane = threadIdx.x;
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * seg;
+  const int64_t hi = min(queue_total(V, n), lo + seg);
+  uint32_t acc = 0;                           // this lane's partial
+  int64_t bad = -1;
+  int32_t bad_id = 0, first = 0;              // first: position lane's id
+  for (int64_t t = lo; t < hi; t += 32) {
+    const int act = static_cast<int>(min(static_cast<int64_t>(32), hi - t));
+    int32_t rid = 0;
+    if (lane < act) rid = queue_id<V>(q, n, t + lane);
+    if (t == 0) first = rid;
+    const unsigned out_of_range =
+        __ballot_sync(kFull, lane < act && (rid < 0 || rid >= limit));
+    // the pass keeps the positions before the first id out of range
+    const int k = out_of_range ? __ffs(out_of_range) - 1 : act;
+    float pk = 0.0f;
+    int32_t ow = 0;
+    if ((V == kAlias3 || V == kAlias2) && lane < k) {
+      pk = __ldg(pt + rid);
+      if (V == kAlias3) ow = __ldg(ot + rid);
+    }
+    // row 2 rid of each kept position: the warp on it, a 16-byte load a
+    // lane, G rows in flight
+    for (int b = 0; b < k; b += G) {
+      int4 v[G];
+      float4 w[G];
+#pragma unroll
+      for (int l = 0; l < G; ++l) {
+        const int32_t r = __shfl_sync(kFull, rid, (b + l) & 31);
+        v[l] = make_int4(0, 0, 0, 0);
+        w[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (b + l < k) {
+          const int64_t row = static_cast<int64_t>(r) * 2 * kLine;
+          v[l] = __ldg(reinterpret_cast<const int4*>(hbm + row) + lane);
+          if (V == kDual)
+            w[l] = __ldg(reinterpret_cast<const float4*>(vbm + row) + lane);
         }
       }
-      if (V != kFlip) {
-        rid = __shfl_sync(kFull, rid, 0);
-        if (rid < 0 || rid >= limit) {        // warp-uniform: no copy
-          bad = i;
-          bad_id = rid;
-          break;
-        }
+#pragma unroll
+      for (int l = 0; l < G; ++l)
+        acc += static_cast<uint32_t>(v[l].x) + static_cast<uint32_t>(v[l].y) +
+               static_cast<uint32_t>(v[l].z) + static_cast<uint32_t>(v[l].w);
+      if (V == kDual) {       // the f32 sums' fixed order (a row not kept
+        float f[G];           // is zeros: it adds 0), the G interleaved
+#pragma unroll
+        for (int l = 0; l < G; ++l)
+          f[l] = ((w[l].x + w[l].y) + w[l].z) + w[l].w;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+#pragma unroll
+          for (int l = 0; l < G; ++l) f[l] += __shfl_xor_sync(kFull, f[l], d);
+        if (lane == 0)
+#pragma unroll
+          for (int l = 0; l < G; ++l)
+            acc += static_cast<uint32_t>(static_cast<int32_t>(f[l]));
       }
-      wait(slot);
-      if (V == kDual) wait(2);
-      const int32_t* rows = scr[slot];
-      if (V == kDataDep) {
-        if (lane == 0) q[64 + floor_mod(rows[0], 32)] =
-            static_cast<int32_t>(acc + 7u);
-        acc += row_sum(rows + kLine, lane);
-      } else {
-        acc += row_sum(rows, lane);
-      }
-      if (V == kDual)
-        acc += static_cast<uint32_t>(static_cast<int32_t>(
-            row_sum_f(vscr, lane)));
-      if (V == kAlias3 || V == kAlias2) {
-        int32_t extra = 0;
-        if (lane == 0) {
-          extra = static_cast<int32_t>(pt[rid]);
-          if (V == kAlias3) extra = static_cast<int32_t>(
-              static_cast<uint32_t>(extra) + static_cast<uint32_t>(ot[rid]));
-        }
-        acc += static_cast<uint32_t>(__shfl_sync(kFull, extra, 0));
-      }
-      if (V == kBitcast && lane == 0)
-        q[100 + floor_mod(i, 8)] =
-            __float_as_int(1.5f * static_cast<float>(i + 1));
-      if (V == kPush && i < 4) {
-        if (lane == 0) q[tail] = rid + 20;
-        ++tail;
-      }
-      __syncwarp();
+    }
+    if (V == kAlias3 || V == kAlias2)
+      acc += static_cast<uint32_t>(static_cast<int32_t>(pk)) +
+             static_cast<uint32_t>(ow);
+    if (out_of_range) {
+      bad = t + k;
+      bad_id = __shfl_sync(kFull, rid, k);
+      break;
     }
   }
-  if (lane == 0) {
-    out[0] = static_cast<int32_t>(acc);
-    out[1] = bad;
-    out[2] = bad_id;
+  const uint32_t sum = __reduce_add_sync(kFull, acc);
+  // the loop's stores into the queue (no position reads these slots)
+  if (blockIdx.x == 0 && bad < 0) {
+    if (V == kPush && n > 0 && lane < 4) q[n + lane] = first + 20;
+    const int64_t total = queue_total(V, n);
+    if (V == kBitcast && lane < 8 && lane < total) {
+      const int64_t i = lane + 8 * ((total - 1 - lane) / 8);  // the last
+      q[100 + lane] = __float_as_int(1.5f * static_cast<float>(i + 1));
+    }
+  }
+  if (lane != 0) return;
+  const long long key =
+      bad < 0 ? kNoBad
+              : (bad << 32) | static_cast<long long>(
+                                  static_cast<uint32_t>(bad_id));
+  if (gridDim.x == 1) {
+    out[0] = static_cast<long long>(sum);
+    out[1] = key;
+  } else {
+    atomicAdd(reinterpret_cast<unsigned*>(out), sum);
+    if (bad >= 0) atomicMin(out + 1, key);
   }
 }
 
@@ -321,15 +366,6 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
       fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
   return fn;
-}
-
-template <int V>
-cudaError_t launch(const int32_t* hbm, const float* vbm, int32_t* q,
-                   const float* pt, const int32_t* ot, int32_t n,
-                   int32_t limit, int32_t* out, cudaStream_t stream) {
-  probe_queue_kernel<V><<<1, 32, 0, stream>>>(hbm, vbm, q, pt, ot, n, limit,
-                                              out);
-  return cudaGetLastError();
 }
 
 // P15's segment record in the scratch table (int32): its sum, its first
@@ -524,27 +560,34 @@ __global__ void __launch_bounds__(32)
 
 }  // namespace
 
+// P7, P8, P10-P12, P14: `blocks` = ceil(total / seg) one-warp blocks (at
+// least one), total = the variant's positions; out (int64 [2]) holds (0,
+// kNoBad) when blocks > 1.
 extern "C" int sslap_probe_queue(int variant, const int32_t* hbm,
                                  const float* vbm, int32_t* q,
                                  const float* pt, const int32_t* ot,
-                                 int32_t n, int32_t limit, int32_t* out,
-                                 void* stream) {
+                                 int32_t n, int32_t limit, int32_t seg,
+                                 int blocks, long long* out, void* stream) {
+  const int64_t total = queue_total(variant, n);
+  if (n < 0 || seg < 32 || seg % 32 != 0 || blocks < 1 ||
+      static_cast<int64_t>(blocks) * seg < total ||
+      static_cast<int64_t>(blocks - 1) * seg >= (total > 0 ? total : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-#define SSLAP_QUEUE(V) launch<V>(hbm, vbm, q, pt, ot, n, limit, out, st)
-  cudaError_t err = cudaErrorInvalidValue;
+#define SSLAP_QUEUE(V)                                                   \
+  queue_pass_kernel<V><<<blocks, 32, 0, st>>>(hbm, vbm, q, pt, ot, n, \
+                                              limit, seg, out)
   switch (variant) {
-    case kQueue: err = SSLAP_QUEUE(kQueue); break;
-    case kPush: err = SSLAP_QUEUE(kPush); break;
-    case kFlip: err = SSLAP_QUEUE(kFlip); break;
-    case kDual: err = SSLAP_QUEUE(kDual); break;
-    case kAlias3: err = SSLAP_QUEUE(kAlias3); break;
-    case kAlias2: err = SSLAP_QUEUE(kAlias2); break;
-    case kDataDep: err = SSLAP_QUEUE(kDataDep); break;
-    case kBitcast: err = SSLAP_QUEUE(kBitcast); break;
-    default: break;
+    case kQueue: SSLAP_QUEUE(kQueue); break;
+    case kPush: SSLAP_QUEUE(kPush); break;
+    case kDual: SSLAP_QUEUE(kDual); break;
+    case kAlias3: SSLAP_QUEUE(kAlias3); break;
+    case kAlias2: SSLAP_QUEUE(kAlias2); break;
+    case kBitcast: SSLAP_QUEUE(kBitcast); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SSLAP_QUEUE
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // P15: `blocks` = ceil(n / seg) one-warp blocks (at least one); scratch

@@ -13,9 +13,11 @@ stages.  Here each is a wrapper beside its plain PyTorch version:
     P6-P15  while_double_buffer, while_qtable_dma, while_qtable_dma_store,
             sem_2d_dynamic, qdma_dual, qdma_alias3, qdma_alias2,
             qdma_store_datadep, qdma_store_bitcast, qdma_store_via_dma
-            -> csrc/probe_queue.cu  (P7-P14 one loop kernel, a variant
-               each; P6 a TMA ring spread over the grid; P15 passes of
-               32 positions a warp, one bulk write back)
+            -> csrc/probe_queue.cu  (P6 and P9 a TMA ring spread over
+               the grid; P7, P8, P10-P12 and P14 passes of 32 positions
+               a warp over segments, a variant each; P13 and P15 passes
+               of 32 positions a warp, cut at a written slot, one bulk
+               write back)
     P16     gs_ladder_uni (probes gs_uni1-3)
     P17     gs_ladder (probes gs_ladder1-3)
             -> csrc/probe_ladder.cu (both: look-ahead gather warps and an
@@ -34,11 +36,13 @@ launches.  The ladder kernels also take any n, m, K and cap
 columns repeat), so they run at the headline's scale.  A P7-P15 loop
 raises ValueError at the first row id it reads outside the tables, on
 either device (the kernels report it in an error word).  ``pump_mirror``,
-``store_pass_mirror`` and ``ladder_lookahead_mirror`` replay the P6, P15
-and P16-P17 kernels' protocols on the CPU (their split over blocks or
-segments; passes cut at a written slot; stale look-ahead snapshots, stamp
-validation and passes), for the tests to hold against the plain
-versions; ``ladder_counters()`` reads the last ladder launch's counters.
+``queue_pass_mirror``, ``store_pass_mirror`` and
+``ladder_lookahead_mirror`` replay the kernels' protocols on the CPU (P6
+and P9's split over blocks; P7-P14's segments, passes and forwarded row
+ids; P13 and P15's passes cut at a written slot; P16-P17's stale
+look-ahead snapshots, stamp validation and passes), for the tests to hold
+against the plain versions; ``ladder_counters()`` reads the last ladder
+launch's counters.
 
     python -m sslap_tpu_torch.ops.probe_gs [name]
 
@@ -65,8 +69,14 @@ LINE = 128
 # kernel's summing warps (kPumpConsumers)
 PUMP_CHUNK = 64
 PUMP_CONSUMERS = 4
-# P15 (csrc/probe_queue.cu): positions a one-warp block takes (a multiple
-# of 32, >= 128), and the int32 a block's record holds (kRec)
+# P7, P8, P10-P12, P14 (csrc/probe_queue.cu, queue_pass_kernel): positions
+# a one-warp block takes (a multiple of 32), and the kernel's error word
+# when no row id was out of range (kNoBad)
+QUEUE_SEGMENT = 512
+NO_BAD = 2 ** 63 - 1
+# P13, P15 (csrc/probe_queue.cu, store_pass_kernel): positions a one-warp
+# block takes (a multiple of 32, >= 128), and the int32 a block's record
+# holds (kRec)
 STORE_SEGMENT = 512
 STORE_RECORD = 68
 # P16-P17 (csrc/probe_ladder.cu): gather warps beside the commit warp (1-8),
@@ -319,6 +329,106 @@ def pump_mirror(hbm, n: int, blocks: int):
     return torch.tensor([total.view(np.int32)], dtype=torch.int32)
 
 
+def queue_total(variant: int, n: int) -> int:
+    """The positions P7-P14's loop runs: n, and P8 pushes four more when
+    n > 0."""
+    return n + 4 if variant == 8 and n > 0 else n
+
+
+def queue_blocks(total: int, segment: int = None) -> int:
+    """P7, P8, P10-P12 and P14's grid: one one-warp block per ``segment``
+    positions (default QUEUE_SEGMENT), at least one."""
+    return max(1, -(-total // (segment or QUEUE_SEGMENT)))
+
+
+def _f32_row_sums(rows):
+    """The f32 sum of each [128] row in queue_pass_kernel's order: lane l's
+    entries 4l..4l+3 left to right, then a butterfly over the 32 lanes
+    (xor 16, 8, 4, 2, 1); lane 0's value."""
+    f = rows.reshape(-1, 32, 4)
+    f = ((f[..., 0] + f[..., 1]) + f[..., 2]) + f[..., 3]
+    lanes = np.arange(32)
+    for d in (16, 8, 4, 2, 1):
+        f = f + f[:, lanes ^ d]
+    return f[:, 0]
+
+
+def _bits_of(i):
+    """The int32 bits of 1.5 * (i + 1) in float32 (P14's stored value)."""
+    return (np.float32(1.5) * np.asarray(i + 1).astype(np.float32)).view(
+        np.int32)
+
+
+@np.errstate(over="ignore")
+def queue_pass_mirror(variant, n, hbm, q, limit, vbm=None, pt=None, ot=None,
+                      segment=None):
+    """P7, P8, P10-P12 and P14's kernel (csrc/probe_queue.cu,
+    queue_pass_kernel) on the CPU: the variant's positions (queue_total)
+    cut into segments of ``segment`` (default QUEUE_SEGMENT), each taken in
+    passes of up to 32.  A pass reads its row ids as the call found the
+    queue, but forwards the slots the loop writes (P8's position p >= n
+    reads q[p mod n] + 20 (p // n); P14's position p in [100, 108) the
+    bits of 1.5 (p - 3)), keeps the positions before its first id out of
+    range and adds their rows (P10: and the f32 sums of their vbm rows in
+    the kernel's order; P11-P12: their prices and owners) into a wrapping
+    partial; a segment stops at its first bad id.  The partials add up; the
+    lowest bad position raises ``_bad_row``; block 0 then applies the
+    loop's stores (P8's pushes, P14's eight slots).  ``q`` (numpy, flat) is
+    modified in place; returns out (int32 [1]) and the counts (segments,
+    passes, forwarded: positions whose id was forwarded)."""
+    segment = segment or QUEUE_SEGMENT
+    h = np.asarray(hbm).reshape(-1, LINE)
+    q0 = q.copy()                        # no position reads a written slot
+    total = queue_total(variant, n)
+    count = dict(segments=0, passes=0, forwarded=0)
+
+    def ids(pos):                        # (row ids, forwarded?)
+        rid = q0[pos].astype(np.int64)
+        fwd = np.zeros(pos.size, bool)
+        if variant == 8:
+            fwd = pos >= n
+            base = q0[np.where(fwd, pos % max(n, 1), 0)].astype(np.int64)
+            rid = np.where(fwd, base + 20 * (pos // max(n, 1)), rid)
+        if variant == 14:
+            fwd = (pos >= 100) & (pos < 108)
+            rid = np.where(fwd, _bits_of(pos - 4), rid)
+        return (rid + 2 ** 31) % 2 ** 32 - 2 ** 31, fwd
+
+    acc, bad = np.uint32(0), None
+    for lo in range(0, queue_blocks(total, segment) * segment, segment):
+        for t in range(lo, min(total, lo + segment), 32):
+            pos = np.arange(t, min(t + 32, lo + segment, total))
+            rid, fwd = ids(pos)
+            valid = (rid >= 0) & (rid < limit)
+            k = pos.size if valid.all() else int(np.argmin(valid))
+            r = rid[:k]
+            acc += h[2 * r].view(np.uint32).sum(dtype=np.uint32)
+            if variant == 10:
+                v = np.asarray(vbm, np.float32).reshape(-1, LINE)[2 * r]
+                acc += _f32_row_sums(v).astype(np.int32).view(
+                    np.uint32).sum(dtype=np.uint32)
+            if variant in (11, 12):
+                acc += np.asarray(pt).reshape(-1)[r].astype(np.int32).view(
+                    np.uint32).sum(dtype=np.uint32)
+            if variant == 11:
+                acc += np.asarray(ot).reshape(-1)[r].view(np.uint32).sum(
+                    dtype=np.uint32)
+            count["passes"] += 1
+            count["forwarded"] += int(fwd[:k].sum())
+            if k < pos.size:             # segments run in position order
+                bad = bad or (t + k, int(rid[k]))
+                break
+        count["segments"] += 1
+    if bad is not None:
+        raise _bad_row(*bad, limit)
+    if variant == 8 and n > 0:
+        q[n:n + 4] = ids(np.arange(4))[0] + 20
+    if variant == 14:
+        for r in range(min(8, total)):
+            q[100 + r] = _bits_of(r + 8 * ((total - 1 - r) // 8))
+    return torch.tensor([acc.view(np.int32)]), count
+
+
 def store_blocks(n: int, segment: int = None) -> int:
     """P15's grid: one one-warp block per ``segment`` positions (default
     STORE_SEGMENT), at least one."""
@@ -428,7 +538,7 @@ def _queue_probe(name, line, order):
         n, hbm, q, vbm, pt, ot, limit = split(s, tables)
         lib = _build.load()
         dev = hbm.device
-        if variant == 6:
+        if variant in (6, 9):            # one function: P6's pump kernel
             blocks = pump_blocks(n, _sms(dev))
             out = (torch.zeros if blocks > 1 else torch.empty)(
                 1, dtype=torch.int32, device=dev)
@@ -436,10 +546,10 @@ def _queue_probe(name, line, order):
                 hbm.data_ptr(), n, blocks, out.data_ptr(), _stream(hbm)),
                 name)
             return (out,)
-        # out[0] the probe's out, out[1:3] the first bad row id's position
-        # and id (P7-P15)
-        out = torch.empty(3, dtype=torch.int32, device=dev)
-        if variant == 15:
+        if variant in (13, 15):          # one function: P15's store passes
+            # out[0] the probe's out, out[1:3] the first bad row id's
+            # position and id
+            out = torch.empty(3, dtype=torch.int32, device=dev)
             blocks = store_blocks(n)
             more = blocks > 1
             scratch = torch.empty(STORE_RECORD * blocks if more else 0,
@@ -450,18 +560,29 @@ def _queue_probe(name, line, order):
                 hbm.data_ptr(), q.data_ptr(), n, limit, STORE_SEGMENT,
                 blocks, scratch.data_ptr(), arrived.data_ptr(),
                 out.data_ptr(), _stream(hbm)), name)
-        else:
-            ptr = (lambda t: 0 if t is None else t.data_ptr())  # noqa: E731
-            _build.check(lib.sslap_probe_queue(
-                variant, hbm.data_ptr(), ptr(vbm), ptr(q), ptr(pt), ptr(ot),
-                n, limit, out.data_ptr(), _stream(hbm)), name)
-        if variant != 9:              # the error word (synchronises)
-            pos, rid = out[1:3].tolist()
+            pos, rid = out[1:3].tolist()          # synchronises
             if pos >= 0:
                 raise _bad_row(pos, rid, limit)
-        return _queue_outputs(variant, q, pt, ot, out[:1])
+            return q, out[:1]
+        # out[0]: the sum in its low 32 bits; out[1]: the first bad row id
+        # as (position << 32 | id), or NO_BAD
+        blocks = queue_blocks(queue_total(variant, n))
+        out = (torch.tensor([0, NO_BAD], dtype=torch.int64, device=dev)
+               if blocks > 1 else torch.empty(2, dtype=torch.int64,
+                                              device=dev))
+        ptr = (lambda t: 0 if t is None else t.data_ptr())  # noqa: E731
+        _build.check(lib.sslap_probe_queue(
+            variant, hbm.data_ptr(), ptr(vbm), q.data_ptr(), ptr(pt),
+            ptr(ot), n, limit, QUEUE_SEGMENT, blocks, out.data_ptr(),
+            _stream(hbm)), name)
+        key = int(out[1])                         # synchronises
+        if key != NO_BAD:
+            raise _bad_row(key >> 32, _wrap32(key & 0xFFFFFFFF), limit)
+        return _queue_outputs(variant, q, pt, ot, out.view(torch.int32)[:1])
 
-    return ProbeKernel(name, line, "probe_queue.cu", plain, cuda)
+    kernel = ProbeKernel(name, line, "probe_queue.cu", plain, cuda)
+    kernel.order = order          # the tables after s, as the probe takes them
+    return kernel
 
 
 while_double_buffer = _queue_probe("while_double_buffer", 194, ("hbm",))
@@ -805,6 +926,29 @@ def store_inputs(n, pairs, seed):
     q = np.zeros(max(n, LINE), np.int32)
     q[:n] = rng.integers(0, pairs, n)
     return hbm, q
+
+
+def queue_inputs(n, pairs, seed):
+    """An instance of P7-P14 at any size, numpy: store_inputs' hbm [2 pairs,
+    128] int32 and q (random ids in q[:n], with room for P8's pushes); vbm
+    [2 pairs, 128] f32 of integers in [-64, 64) (every partial sum of a row
+    exact, so the f32 row sum does not depend on its order); pt [pairs]
+    f32 integers and ot [pairs] int32.  ``queue_tables`` puts them in a
+    probe's order."""
+    hbm, q = store_inputs(n, pairs, seed)
+    q = np.concatenate([q, np.zeros(max(0, n + 4 - q.size), np.int32)])
+    rng = np.random.default_rng([seed, 1])
+    vbm = rng.integers(-64, 64, hbm.shape).astype(np.float32)
+    pt = rng.integers(-10 ** 6, 10 ** 6, pairs).astype(np.float32)
+    ot = rng.integers(-2 ** 31, 2 ** 31, pairs, dtype=np.int64).astype(
+        np.int32)
+    return dict(hbm=hbm, q=q, vbm=vbm, pt=pt, ot=ot)
+
+
+def queue_tables(kernel, tables):
+    """The tables of ``queue_inputs`` (a dict) a queue probe takes after its
+    scalars, in its order."""
+    return tuple(tables[k] for k in kernel.order)
 
 
 def _gs_inputs(prefetch=True, scan="full"):

@@ -536,6 +536,116 @@ def test_queue_kernels_raise_at_a_written_bad_row_id(dev, name, n, pos):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
+_PASS_PROBES = ("while_qtable_dma", "while_qtable_dma_store", "qdma_dual",
+                "qdma_alias3", "qdma_alias2", "qdma_store_bitcast")
+
+
+def _pass_kernel_against_plain(dev, name, n, inst):
+    """The probe's kernel on ``inst`` (queue_inputs) against its plain loop
+    on CPU copies: the same outputs bit for bit, or the same ValueError.
+    True where both raised."""
+    kernel = PG.PROBES[name]
+    host = {k: torch.from_numpy(v) for k, v in inst.items()}
+    card = {k: t.to(dev) for k, t in host.items()}
+    before = kernel.launches
+    try:
+        want, err = kernel((n,), *PG.queue_tables(kernel, host)), None
+    except ValueError as e:
+        want, err = None, str(e)
+    try:
+        got = kernel((n,), *PG.queue_tables(kernel, card))
+    except ValueError as e:
+        assert str(e) == err
+        return True
+    assert err is None, err
+    assert kernel.launches == before + 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    return False
+
+
+@pytest.mark.parametrize("segment", [None, 64])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 12, 31, 32, 33, 127, 128, 129,
+                               513, 2000, 20_000])
+@pytest.mark.parametrize("name", _PASS_PROBES)
+def test_pass_kernel_matches_plain(dev, monkeypatch, name, n, segment):
+    """The pass kernel (P7, P8, P10-P12, P14) on the CPU tests' drawn
+    instances (queue_inputs over 128 row pairs; 2**14 at n = 20,000), in
+    segments of 512 or 64: equal to the plain loop bit for bit, P14
+    raising at position 100 past n = 100 as the plain loop does."""
+    if segment is not None:
+        monkeypatch.setattr(PG, "QUEUE_SEGMENT", segment)
+    pairs = 2 ** 14 if n == 20_000 else 128
+    inst = PG.queue_inputs(n, pairs, n)
+    if name == "while_qtable_dma_store":
+        inst["q"][:n] %= pairs - 80
+    raised = _pass_kernel_against_plain(dev, name, n, inst)
+    assert raised == (name == "qdma_store_bitcast" and n > 100)
+
+
+@pytest.mark.parametrize("segment", [None, 64])
+@pytest.mark.parametrize("positions", [(0,), (31,), (32,), (64,), (511,),
+                                       (512,), (700, 600), (33, 599, 1)])
+@pytest.mark.parametrize("name", _PASS_PROBES)
+def test_pass_kernel_stops_at_the_first_bad_id(dev, monkeypatch, name,
+                                               positions, segment):
+    """Bad ids at pass and segment boundaries, one or more, n = 800: the
+    kernel reports the first in position order and the wrapper raises the
+    plain loop's ValueError."""
+    if segment is not None:
+        monkeypatch.setattr(PG, "QUEUE_SEGMENT", segment)
+    inst = PG.queue_inputs(800, 128, 7)
+    for j, p in enumerate(positions):
+        inst["q"][p] = -1 - j if j % 2 == 0 else 128 + j
+    assert _pass_kernel_against_plain(dev, name, 800, inst)
+
+
+@pytest.mark.parametrize("k", [None, 1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+def test_pass_kernel_p8_chains_below_four(dev, n, k):
+    """P8 with n < 4 (ids chain through pushes) and a push past the tables
+    at the k-th link (q[0] = 128 - 20 k): as the plain loop."""
+    inst = PG.queue_inputs(n, 128, 11)
+    inst["q"][:n] %= 48
+    if k is not None:
+        inst["q"][0] = 128 - 20 * k
+    raised = _pass_kernel_against_plain(dev, "while_qtable_dma_store", n, inst)
+    assert raised == (k is not None and k * n < n + 4)
+
+
+@pytest.mark.parametrize("n", [0, 1, 8, 17, 1000, 20_000])
+def test_p9_runs_the_pump_kernel(dev, n):
+    """P9 launches P6's pump kernel: equal to its plain loop and to the
+    closed form, distinct row values."""
+    hbm = _distinct_rows(2 * n + 2, dev)
+    before = PG.sem_2d_dynamic.launches
+    got = PG.sem_2d_dynamic((n,), hbm)[0]
+    want = PG.sem_2d_dynamic.plain((n,), hbm.cpu())[0]
+    closed = (131 * 2 * PG.LINE * (n * (n - 1) // 2)
+              + (PG.LINE * (PG.LINE - 1) // 2) * n)
+    assert got.tolist() == want.tolist() == [PG._wrap32(closed)]
+    assert PG.sem_2d_dynamic.launches == before + 1
+
+
+@pytest.mark.parametrize("segment", [None, 128])
+@pytest.mark.parametrize("n", [0, 1, 12, 64, 65, 96, 97, 200, 1000])
+def test_p13_runs_the_store_kernel(dev, monkeypatch, n, segment):
+    """P13 launches P15's store-pass kernel: queue and out equal to its
+    plain loop, over 4 seeds, where positions 64-95 read slots the loop
+    wrote."""
+    if segment is not None:
+        monkeypatch.setattr(PG, "STORE_SEGMENT", segment)
+    for seed in range(4):
+        hbm, q = PG.to_device(PG.store_inputs(n, 128, seed), dev)
+        got = PG.qdma_store_datadep((n,), hbm, q)
+        want = PG.qdma_store_datadep.plain((n,), hbm.cpu(), q.cpu())
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(problem="max")])
 def test_rectangular_hybrid_on_cuda_matches_cpu(dev, kw):
     n, m = 3000, 5000             # > threshold 4096 unplaced at the start

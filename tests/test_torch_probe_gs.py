@@ -387,3 +387,186 @@ def test_ladder_lookahead_mirror_on_three_tables(stage, first, snapshot,
     assert stats.tolist() == want[3].tolist()
     _assert_same(acc, want[4].numpy())
     assert cnt["from_lane"] + cnt["self"] == stats[0]
+
+
+# ---------------------------------------------------------------------------
+# P7, P8, P10-P12 and P14's pass kernel (csrc/probe_queue.cu,
+# queue_pass_kernel) on the CPU, and P9 and P13 on P6's and P15's kernels,
+# bit for bit against the plain loops.
+# ---------------------------------------------------------------------------
+
+_PASS_PROBES = ("while_qtable_dma", "while_qtable_dma_store", "qdma_dual",
+                "qdma_alias3", "qdma_alias2", "qdma_store_bitcast")
+_PAIRS = 128
+
+
+def _pass_against_plain(name, n, inst, segment):
+    """queue_pass_mirror on ``inst`` (queue_inputs) against the probe's
+    plain loop: the same out and queue, or the same ValueError.  Returns
+    the mirror's counts, or None where both raised."""
+    kernel = PG.PROBES[name]
+    tables = {k: torch.from_numpy(v.copy()) for k, v in inst.items()}
+    try:
+        want, err = kernel((n,), *PG.queue_tables(kernel, tables)), None
+    except ValueError as e:
+        want, err = None, str(e)
+    q = inst["q"].copy()
+    try:
+        out, count = PG.queue_pass_mirror(
+            PG._QUEUE_VARIANTS[name], n, inst["hbm"], q, _PAIRS,
+            inst["vbm"], inst["pt"], inst["ot"], segment=segment)
+    except ValueError as e:
+        assert str(e) == err
+        return None
+    assert err is None, err
+    assert out.dtype == torch.int32 and out.tolist() == want[-1].tolist()
+    np.testing.assert_array_equal(q, want[0].numpy().reshape(-1))
+    for got, key in zip(want[1:-1], ("pt", "ot")):
+        np.testing.assert_array_equal(got.numpy(), inst[key])
+    return count
+
+
+@pytest.mark.parametrize("segment", [None, 64])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 12, 31, 32, 33, 127, 128, 129,
+                               513, 2000])
+@pytest.mark.parametrize("name", _PASS_PROBES)
+def test_queue_pass_mirror_matches_plain(name, n, segment):
+    """Drawn queues (ids over 128 row pairs, rows of random int32 that
+    wrap, vbm rows of small integers, random prices and owners), segments
+    of 512 or 64: the mirror equals the plain loop, P14 raising at
+    position 100 past n = 100 (it reads the float bits the loop stored).
+    P8's ids stay below 48, so that its pushes (+ 20 a link) stay in
+    range."""
+    inst = PG.queue_inputs(n, _PAIRS, n)
+    if name == "while_qtable_dma_store":
+        inst["q"][:n] %= _PAIRS - 80
+    count = _pass_against_plain(name, n, inst, segment)
+    if name == "qdma_store_bitcast" and n > 100:
+        assert count is None
+        return
+    total = PG.queue_total(PG._QUEUE_VARIANTS[name], n)
+    assert count["segments"] == PG.queue_blocks(total, segment)
+    assert count["passes"] == sum(
+        -(-min(total - lo, segment or PG.QUEUE_SEGMENT) // 32)
+        for lo in range(0, total, segment or PG.QUEUE_SEGMENT))
+    if name == "while_qtable_dma_store":
+        assert count["forwarded"] == (4 if n else 0)
+
+
+def _place_bad(inst, name, n, positions):
+    """Out-of-range ids at ``positions`` (alternately below 0 and at or
+    past the 128 row pairs); a P8 position p in [n, n + 4) through the
+    slot its id is forwarded from, q[p mod n], which then stays in range
+    itself only when p < 2 n."""
+    q = inst["q"]
+    for j, p in enumerate(positions):
+        if name == "while_qtable_dma_store" and p >= n:
+            q[p % n] = _PAIRS - 20 if p < 2 * n else _PAIRS
+        else:
+            q[p] = -1 - j if j % 2 == 0 else _PAIRS + j
+
+
+@pytest.mark.parametrize("segment", [None, 64])
+@pytest.mark.parametrize("positions", [(0,), (31,), (32,), (63,), (64,),
+                                       (95, 40), (511,), (512,), (700, 600),
+                                       (33, 599, 1)])
+@pytest.mark.parametrize("name", _PASS_PROBES)
+def test_queue_pass_mirror_stops_at_the_first_bad_id(name, positions,
+                                                     segment):
+    """Bad ids at pass (32) and segment (64, 512) boundaries, one or more
+    (the lowest position wins, also when a later segment holds another):
+    the mirror raises the plain loop's ValueError, naming the first bad
+    position in position order and its id."""
+    n = 800
+    inst = PG.queue_inputs(n, _PAIRS, 7)
+    _place_bad(inst, name, n, positions)
+    assert _pass_against_plain(name, n, inst, segment) is None
+
+
+@pytest.mark.parametrize("k", [None, 1, 2, 3, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+def test_queue_pass_mirror_p8_pushes_chain_below_four(n, k):
+    """P8 with n < 4: position n + i reads the push of position i, itself
+    pushed when i >= n, so ids chain (q[p mod n] + 20 (p // n)).  With
+    q[0] = 128 - 20 k (the other ids below 48) the k-th link, position k n,
+    reads 128, past the tables: both stop there if it lies below n + 4,
+    and both run to the end otherwise."""
+    inst = PG.queue_inputs(n, _PAIRS, 11)
+    inst["q"][:n] %= _PAIRS - 80
+    if k is not None:
+        inst["q"][0] = _PAIRS - 20 * k
+    stops = k is not None and k * n < n + 4
+    count = _pass_against_plain("while_qtable_dma_store", n, inst, None)
+    assert (count is None) == stops
+    if stops:
+        with pytest.raises(ValueError, match=(
+                f"row id {_PAIRS} read at position {k * n} ")):
+            PG.queue_pass_mirror(8, n, inst["hbm"], inst["q"].copy(),
+                                 _PAIRS)
+    else:
+        assert count["forwarded"] == 4
+
+
+@pytest.mark.parametrize("n", [99, 100, 101, 107, 108, 300])
+def test_queue_pass_mirror_p14_past_position_100(n):
+    """P14's position p in [100, 108) reads the bits of 1.5 (p - 3), which
+    iteration p - 4 stored, far outside the tables: from n = 101 both raise
+    at position 100 with that id; up to 100 the eight slots hold the last
+    writer's bits."""
+    count = _pass_against_plain("qdma_store_bitcast", n,
+                                PG.queue_inputs(n, _PAIRS, 3), 64)
+    assert (count is None) == (n > 100)
+    if n > 100:
+        with pytest.raises(ValueError, match=(
+                f"row id {int(np.float32(1.5 * 97).view(np.int32))} read "
+                f"at position 100 ")):
+            PG.queue_pass_mirror(14, n, *(PG.queue_inputs(n, _PAIRS, 3)[k]
+                                          for k in ("hbm", "q")), _PAIRS)
+
+
+@settings(max_examples=60, deadline=None)
+@given(name=st.sampled_from(_PASS_PROBES), n=st.integers(0, 300),
+       seed=st.integers(0, 2 ** 31), segment=st.sampled_from([32, 64, 512]),
+       bad=st.lists(st.integers(0, 310), max_size=2))
+def test_queue_pass_mirror_matches_plain_on_drawn_instances(name, n, seed,
+                                                            segment, bad):
+    inst = PG.queue_inputs(n, _PAIRS, seed)
+    _place_bad(inst, name, n, [p for p in bad
+                               if p < PG.queue_total(
+                                   PG._QUEUE_VARIANTS[name], n)])
+    _pass_against_plain(name, n, inst, segment)
+
+
+def test_queue_grid():
+    assert [PG.queue_total(8, n) for n in (0, 1, 12)] == [0, 5, 16]
+    assert [PG.queue_total(7, n) for n in (0, 12)] == [0, 12]
+    assert [PG.queue_blocks(t) for t in (0, 1, 512, 513, 2 ** 20)] == [
+        1, 1, 1, 2, 2048]
+    assert PG.queue_blocks(65, 32) == 3
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132])
+@pytest.mark.parametrize("n", [0, 1, 8, 17, 1000])
+def test_pump_mirror_holds_p9(n, blocks):
+    """P9 computes P6's function, so it runs P6's pump kernel: the pump's
+    split equals P9's plain loop (start + wait, a flipping slot)."""
+    hbm = (np.arange(2 * n + 2, dtype=np.int64)[:, None] * 131
+           + np.arange(PG.LINE)).astype(np.int32)
+    hbm[::3] *= 40_000
+    want = PG.sem_2d_dynamic((n,), torch.from_numpy(hbm))[0]
+    assert PG.pump_mirror(hbm, n, blocks).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("segment", [128, 512])
+@pytest.mark.parametrize("n", [0, 1, 12, 64, 65, 96, 97, 200, 700])
+def test_store_pass_mirror_holds_p13(n, segment):
+    """P13 computes P15's function, so it runs P15's store passes: the
+    mirror equals P13's plain loop, queue and out, over 4 seeds."""
+    for seed in range(4):
+        hbm, q = PG.store_inputs(n, 128, seed)
+        want = PG.qdma_store_datadep((n,), torch.from_numpy(hbm),
+                                     torch.from_numpy(q))
+        got_q = q.copy()
+        out, _ = PG.store_pass_mirror(n, hbm, got_q, 128, segment=segment)
+        assert out.tolist() == want[1].tolist()
+        np.testing.assert_array_equal(got_q, want[0].numpy())
