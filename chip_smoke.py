@@ -44,7 +44,13 @@ of which raises on failure (so the exit code is non-zero):
                  tier_rounds, host bids and the ladder's per-round cost
                  above and below its one-block tail (%globaltimer), and a
                  torch.profiler window over one cached device pass prints
-                 the device's idle share
+                 the device's idle share.  Then the device seed of the HK
+                 pre-check on the headline: the greedy maximal matching on
+                 the card against the port on the CPU (bit for bit, with
+                 its rounds and matched share), is_feasible with
+                 device_seed False and True (median of SEED_REPS calls
+                 each; equal answers, equal HK sizes), and its split (CSR,
+                 column table, HK from each seed)
   6. gs       -- K3 (ops.gs_auction_device) on the headline's tail: the
                  square hybrid's device pass is rebuilt from the package's
                  functions, owner derived, the unassigned rows with entries
@@ -132,6 +138,29 @@ of which raises on failure (so the exit code is non-zero):
                  (costs < 1000, ties in every row) reported as it ends
                  (its GS tail budget runs out, as the reference's does on
                  the CPU: dense_tail_budget.py)
+ 11. sharded  -- the row-sharded Jacobi solve (sslap_tpu_torch.parallel):
+                 the 1M headline through sharded_solve_ell on [cuda] and
+                 [cuda] * 4 (four shards on the one card), capped at
+                 SHARD_ROUNDS rounds, each equal to the port's solve_ell
+                 on the card under the same cap (sigma, prices bits,
+                 rounds, phases), K1 and K2's resolve launch once a shard
+                 a round and K2's commit launch never; ms a round, and a
+                 torch.profiler window over SHARD_PROFILE_ROUNDS rounds on
+                 four shards (K1, the resolve launch, torch ops, idle);
+                 the resolve launch alone on the headline's first round
+                 against its plain version (exact), timed as in phase 3
+                 beside its byte bound and scatter_reduce_ amax;
+                 AuctionSolver(mode="sharded", device="cuda") on a 5k x 5k
+                 float32 instance (complete; |obj - obj_cpu| <= n *
+                 eps_min against mode="cpu") and a 5k x 10k int32 one
+                 (capped at SHARD_RECT_ROUNDS rounds), and the rectangle
+                 with partition="nnz" on [cuda] * 2, each bit for bit
+                 against the same solve on a CPU mesh of 4 (2 for nnz),
+                 which a child process (--sharded-cpu) computes beside
+                 these card solves (after the headline's timings);
+                 auction_solve_batched(mode="device")
+                 over a "batch" mesh of [cuda] * 2 at B = 4, n = 256,
+                 equal to the call without a mesh
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
@@ -166,7 +195,11 @@ carries its batched entry's numbers as batched_* (a chunk of 32 instances,
 131,072 rows, as mode="device" runs it; all 256 instances as
 batched_all_*), K2's its first round on that chunk as batched_*, both their
 device time in one mode="device" call as batched_device_mode_ms, and the
-limiter readings as ms_local_gathers (K1 at 1M) / ms_no_bidder.  The last
+limiter readings as ms_local_gathers (K1 at 1M) / ms_no_bidder.  K1's and
+K2's entries also carry sharded_launches, their launches on phase 11's
+sharded runs (K2: the resolve launch alone), K1's the profiler split
+(sharded_profile) and K2's the resolve launch's own numbers
+(sharded_resolve: ms, ms_device, plain_ms, bound, library_ms).  The last
 line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -191,6 +224,9 @@ at n = 0, 1, 17 and P6/P9 at 500,000 copies; the ladder kernels at 1M
 rows, closed form and conflict instances) and prints them as one line
 "PROBES LABEL {...}"; A/B between trees as --k12 (a tree whose
 ladder_inputs has no first= skips the conflict instances).
+
+--sharded-cpu PATH is phase 11's child: its solves on CPU meshes, saved to
+PATH (npz).
 
 --k3 LABEL runs only phase 6's K3 measurements (no _scan stubs), plus the
 whole tail at each number of bid warps in K3_SWEEP (through the module
@@ -218,7 +254,10 @@ from sslap_tpu_torch import auction as A
 from sslap_tpu_torch import batch as BT
 from sslap_tpu_torch import compact as C
 from sslap_tpu_torch import dense_batch as DB
+from sslap_tpu_torch import feasibility as F
+from sslap_tpu_torch import feasibility_device as FD
 from sslap_tpu_torch import hybrid as H
+from sslap_tpu_torch import parallel as PP
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.batch import auction_solve_batched, stack_problems
 from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched, \
@@ -226,6 +265,7 @@ from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched, \
     dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
     ladder_phase_plain
 from sslap_tpu_torch.ops import gs_kernel as GK
+from sslap_tpu_torch.ops.commit import resolve
 from sslap_tpu_torch.ops import ladder as L
 from sslap_tpu_torch.ops import probe_gs as PG
 
@@ -264,6 +304,13 @@ GS_TWIN_BIDS = 20_000         # K3 against its twin over this prefix
 GS_STUB_BIDS = 1_000_000      # the _scan stubs' timed runs on the tail
 GS_MAX_SECONDS = 60.0         # above this, K3 and native stop at one cap
 K3_SWEEP = (0, 1, 2, 4, 16)   # --k3: the tail at these bid warps too
+SEED_REPS = 3                 # phase 5: is_feasible timed this many times
+SHARD_ROUNDS = 2000           # phase 11: the 1M sharded solve's round cap
+SHARD_PROFILE_ROUNDS = 100    # phase 11: rounds under the profiler
+SHARD_N = 5000                # phase 11: the complete sharded solve
+SHARD_RECT = (5000, 10000)    # phase 11: rectangular int32, capped at
+SHARD_RECT_ROUNDS = 1000      # this many rounds (the full-width
+                              # rectangular solve can spend its max_iter)
 
 
 def log(*args) -> None:
@@ -930,7 +977,64 @@ def phase_headline(solver, loc, vv, inp):
         raise AssertionError("headline objective disagrees with mode='cpu'")
     log(f"[5 headline] launches during the cold solve: ladder "
         f"{launches['ladder']} (one per phase), K1 {k12[0]}, K2 {k12[1]}")
+    _feasibility_seed(solver.problem_spec)
     return launches, cold["meta"]["its"]
+
+
+def _feasibility_seed(prob) -> None:
+    """The device seed of the HK pre-check on the headline: the greedy
+    maximal matching on the card against the port on the CPU (bit for
+    bit, rounds), then is_feasible with device_seed False and True, each
+    the median of SEED_REPS timed calls: equal answers, and the seeded
+    HK's matching size equal to the host HK's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = FD.greedy_matching(prob, device=DEVICE)
+    gpu_s = time.perf_counter() - t0
+    rounds = FD.greedy_matching_packed.rounds
+    t0 = time.perf_counter()
+    want = FD.greedy_matching(prob, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not (all(np.array_equal(a, b) for a, b in zip(got, want))
+            and FD.greedy_matching_packed.rounds == rounds):
+        raise AssertionError("greedy matching: CUDA != CPU")
+    log(f"[5 headline] greedy matching (device seed): CUDA {gpu_s:.3f} s == "
+        f"CPU {cpu_s:.3f} s bit for bit; {rounds} rounds, matched share "
+        f"{float((got[0] >= 0).mean())!r}")
+    times, answers = {}, {}
+    for seed in (False, True):
+        secs = []
+        for _ in range(SEED_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers[seed] = F.is_feasible(prob, device_seed=seed,
+                                          device=DEVICE)
+            secs.append(time.perf_counter() - t0)
+        times[seed] = float(np.median(secs))
+    sizes = [F.hopcroft_karp(prob, device_seed=seed, device=DEVICE)[2]
+             for seed in (False, True)]
+    log(f"[5 headline] is_feasible: host seed {times[False]:.3f} s, device "
+        f"seed {times[True]:.3f} s (median of {SEED_REPS}); answers "
+        f"{answers[False]} / {answers[True]}; HK sizes {sizes[0]} / "
+        f"{sizes[1]}")
+    # the split: CSR, column table, the HK from each seed
+    split = {}
+    t0 = time.perf_counter()
+    indptr, indices = F._ell_to_csr(prob)
+    split["csr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    FD.build_colpack(prob.cols, prob.valid, prob.m)
+    split["colpack"] = time.perf_counter() - t0
+    for name, init in (("hk_host_seed", None), ("hk_device_seed", got)):
+        t0 = time.perf_counter()
+        F.hopcroft_karp_csr(indptr, indices, prob.n, prob.m, init_match=init)
+        split[name] = time.perf_counter() - t0
+    log(f"[5 headline] is_feasible split (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f"; greedy pass on the "
+        f"card {gpu_s:.3f} (H2D and D2H included)")
+    if answers[False] != answers[True] or sizes[0] != sizes[1] or \
+            not answers[False]:
+        raise AssertionError("is_feasible: seeded != host")
 
 
 # ---------------------------------------------------------------------------
@@ -2490,6 +2594,328 @@ def phase_batch():
     return dk, k1b, k2b, prof, launches, k1_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the row-sharded Jacobi solve (parallel/) and the batch over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _sharded_inputs(prob):
+    """auction_solve_sharded's schedule for ``prob`` (min, the default
+    theta, mixed tail, the global bigp) and its transformed values."""
+    vals, valid = prob.vals, prob.valid
+    vmax_abs = float(np.abs(vals[valid]).max())
+    tr = A.make_transform("min", prob.m, vals.dtype, vmax_abs)
+    theta = A.device_theta_default(prob.n)
+    e0, e_min, theta_v = A.default_eps_schedule(vals.dtype, vmax_abs, prob.m,
+                                                tr.scale, theta=theta)
+    tv = vals[valid].astype(np.float64) * (tr.sign * tr.scale)
+    return dict(vals_t=tr.apply(vals), e0=e0, e_min=e_min, theta=theta_v,
+                theta_tail=3.0 if theta > 5 else 0.0,
+                bigp=float(tv.max() - tv.min()) + 1.0)
+
+
+def _sharded_run(prob, inp, shards, max_iter):
+    """sharded_solve_ell over [cuda] * shards; returns (result, seconds,
+    K1 launches, resolve launches, K2 commit launches)."""
+    dev = torch.device(DEVICE)
+    bid_topk.launches = resolve.launches = commit.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = PP.sharded_solve_ell(
+        prob, inp["vals_t"], PP.make_mesh([dev] * shards),
+        torch.zeros(prob.m, dtype=torch.float32), inp["e0"], inp["e_min"],
+        inp["theta"], max_iter, inp["bigp"], prob.n,
+        theta_tail=inp["theta_tail"])
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, bid_topk.launches,
+            resolve.launches, commit.launches)
+
+
+def _profile_sharded(prob, inp, shards):
+    """torch.profiler over SHARD_PROFILE_ROUNDS sharded rounds: K1's, the
+    resolve launch's and the torch ops' device time, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = _sharded_run(prob, inp, shards, SHARD_PROFILE_ROUNDS)[0]
+        window = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+
+    def device_ms(pred):
+        return 1e-3 * sum(e.self_device_time_total for e in events
+                          if pred(e.key))
+
+    k1 = device_ms(lambda k: "bid_kernel<" in k and "dense" not in k)
+    k2 = device_ms(lambda k: "resolve_kernel<" in k)
+    busy = device_ms(lambda k: True)
+    out = dict(shards=shards, rounds=res.rounds, window_ms=window,
+               round_ms=window / res.rounds, k1_ms=k1, k2_resolve_ms=k2,
+               torch_ops_ms=busy - k1 - k2, idle_share=1 - busy / window)
+    log(f"[11 sharded] profiler, {shards} shards, {res.rounds} rounds: "
+        f"window {window:.1f} ms ({window / res.rounds:.3f} ms a round); "
+        f"device K1 {k1:.2f} ms, K2 resolve {k2:.2f} ms, torch ops "
+        f"{busy - k1 - k2:.2f} ms; idle share {1 - busy / window:.3f}")
+    return out
+
+
+def _sharded_headline(prob):
+    """The 1M headline through sharded_solve_ell on [cuda] and [cuda] * 4,
+    capped at SHARD_ROUNDS rounds, each equal to the port's solve_ell on
+    the card under the same cap (sigma, prices bits, rounds, phases).
+    Returns the launches (K1, K2's resolve launch) per mesh."""
+    inp = _sharded_inputs(prob)
+    dev = torch.device(DEVICE)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    commit.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = A.solve_ell(t(prob.cols), t(inp["vals_t"]), t(prob.valid),
+                      t(prob.nvalid), torch.zeros(prob.m, device=dev),
+                      inp["e0"], inp["e_min"], inp["theta"], SHARD_ROUNDS,
+                      n_global=prob.n, bigp=inp["bigp"],
+                      theta_tail=inp["theta_tail"])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    log(f"[11 sharded] headline {prob.n}x{prob.m}, solve_ell on the card "
+        f"(cap {SHARD_ROUNDS}): {ref_s:.3f} s, {ref.rounds} rounds "
+        f"({1e3 * ref_s / ref.rounds:.3f} ms a round), {ref.phases} phases, "
+        f"{ref.unassigned} unassigned; K2 launches {commit.launches}")
+    launches = {}
+    for shards in (1, 4):
+        res, secs, k1, k2, k2_commit = _sharded_run(prob, inp, shards,
+                                                    SHARD_ROUNDS)
+        same = (torch.equal(res.sigma, ref.sigma)
+                and _same_bits(res.prices, ref.prices)
+                and (res.rounds, res.phases, res.unassigned)
+                == (ref.rounds, ref.phases, ref.unassigned))
+        log(f"[11 sharded] headline on {shards} shard(s): {secs:.3f} s "
+            f"({1e3 * secs / res.rounds:.3f} ms a round); == solve_ell "
+            f"(sigma, prices bits, rounds, phases): {same}; launches K1 "
+            f"{k1}, K2 resolve {k2}, K2 commit {k2_commit}")
+        if not same or not k1 == k2 == shards * res.rounds or k2_commit:
+            raise AssertionError(f"sharded headline on {shards} shards")
+        launches[f"headline_{shards}"] = dict(bid_topk=k1, commit=k2)
+    prof = _profile_sharded(prob, inp, 4)
+    return launches, prof, _resolve_timing(prob, inp)
+
+
+def _resolve_timing(prob, inp, reps=20):
+    """K2's resolve launch alone on the headline's first sharded round
+    (every row bids on zero prices): against its plain version (exact),
+    timed as in phase 3, beside its byte bound and scatter_reduce_ amax
+    on the same keys (the library call)."""
+    from sslap_tpu_torch.ops.commit import KEY_FLIP, _flipped_keys, \
+        resolve_plain
+    dev = torch.device(DEVICE)
+    n, m = prob.n, prob.m
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    tgt, bid = bid_topk(ids, t(prob.cols), A.mask_vals(t(inp["vals_t"]),
+                                                      t(prob.valid)),
+                        t(prob.nvalid), torch.zeros(m, device=dev),
+                        torch.full((n,), -1, dtype=torch.int32, device=dev),
+                        torch.full((m,), -1, dtype=torch.int32, device=dev),
+                        np.float32(inp["e0"]), np.float32(inp["bigp"]))
+    zeros = lambda: torch.zeros(m, dtype=torch.int64, device=dev)  # noqa
+    got, want = resolve(ids, tgt, bid, zeros()), \
+        resolve_plain(ids, tgt, bid, zeros())
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("resolve launch != its plain version")
+    flipped = _flipped_keys(bid, ids)
+    idx = tgt.long()
+    table = lambda: torch.full((m + 1,), KEY_FLIP, dtype=torch.int64,  # noqa
+                               device=dev)
+    out = dict(
+        bids=int((tgt < m).sum()), max_abs_err=0.0,
+        ms=_median_ms(lambda: (ids, tgt, bid, zeros()), resolve, reps),
+        ms_device=_device_ms(lambda: (ids, tgt, bid, zeros()), resolve,
+                             reps),
+        plain_ms=_median_ms(lambda: (ids, tgt, bid, zeros()), resolve_plain,
+                            reps),
+        library_ms=_median_ms(lambda: (table(),),
+                              lambda tb: tb.scatter_reduce_(0, idx, flipped,
+                                                            "amax"), reps),
+        **_bound(12 * n + 16 * m))
+    log(f"[11 sharded] K2 resolve launch alone, headline's first round "
+        f"(C = {n}, {out['bids']} bids): {out['ms']:.4f} ms (back to back "
+        f"{out['ms_device']:.4f}), plain {out['plain_ms']:.4f} ms, "
+        f"scatter_reduce_ amax {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_ms'] / out['ms_device']:.1%} "
+        f"back to back); exact")
+    return out
+
+
+def _sharded_cases():
+    """Phase 11's solves against the CPU: (instance, kwargs, CPU shards).
+    The SHARD_N square float32 instance, complete, and the SHARD_RECT
+    int32 one capped at SHARD_RECT_ROUNDS rounds, by rows and by nnz."""
+    rr, cc, vv = make_instance(SHARD_N, SHARD_N, 9, seed=5)
+    n, m = SHARD_RECT
+    loc, val = make_sparse(n, m, 10, seed=13, high=1000)
+    rect = (loc, val, (n, m))
+    return {"square_f32": ((np.stack([rr, cc], 1), vv, (SHARD_N, SHARD_N)),
+                           {}, 4),
+            "rect_i32": (rect, dict(max_iter=SHARD_RECT_ROUNDS), 4),
+            "rect_i32_nnz": (rect, dict(max_iter=SHARD_RECT_ROUNDS,
+                                        partition="nnz"), 2)}
+
+
+def _meta_keys(meta):
+    return {k: meta[k] for k in ("its", "phases", "unassigned", "final_eps",
+                                 "obj", "soln_found")}
+
+
+def sharded_cpu(path: str) -> None:
+    """--sharded-cpu PATH: phase 11's solves on CPU meshes of 4 and 2 (the
+    kernels' plain versions, resolve_bids and the pmax/pmin combine),
+    saved to PATH (npz) for the card run to compare with."""
+    out = {}
+    for name, ((loc, val, shape), kw, shards) in _sharded_cases().items():
+        mesh = PP.make_mesh([torch.device("cpu")] * shards)
+        t0 = time.perf_counter()
+        res = PP.auction_solve_sharded(loc=loc, val=val, shape=shape,
+                                       mesh=mesh, **kw)
+        secs = time.perf_counter() - t0
+        out[name + "_sol"] = res["sol"]
+        out[name + "_prices"] = res["prices"]
+        out[name + "_meta"] = np.array(json.dumps(
+            dict(_meta_keys(res["meta"]), seconds=secs)))
+        log(f"[11 sharded cpu] {name} on {shards} CPU shards: {secs:.1f} s, "
+            f"its {res['meta']['its']}")
+    np.savez(path, **out)
+
+
+def _sharded_parity():
+    """AuctionSolver(mode='sharded', device='cuda') on phase 11's square
+    and rectangular instances (the square one also against mode='cpu':
+    |obj - obj_cpu| <= n * eps_min), and the rectangle by nnz through
+    auction_solve_sharded on [cuda] * 2.  Returns (the results, the
+    launches)."""
+    dev = torch.device(DEVICE)
+    results, launches = {}, {}
+    for name, ((loc, val, shape), kw, shards) in _sharded_cases().items():
+        bid_topk.launches = resolve.launches = 0
+        t0 = time.perf_counter()
+        if "partition" in kw:
+            res = PP.auction_solve_sharded(
+                loc=loc, val=val, shape=shape,
+                mesh=PP.make_mesh([dev] * shards), **kw)
+        else:
+            res = AuctionSolver(loc=loc, val=val, shape=shape,
+                                mode="sharded", device=DEVICE, **kw).solve()
+        secs = time.perf_counter() - t0
+        mt = res["meta"]
+        round_ms = 1e3 * secs / mt["its"]
+        log(f"[11 sharded] {name} {shape} {kw}: CUDA ({mt['n_shards']} "
+            f"shard(s)) {secs:.3f} s, its {mt['its']} ({round_ms:.3f} ms a "
+            f"round), phases {mt['phases']}, soln_found {mt['soln_found']}; "
+            f"launches K1 {bid_topk.launches}, K2 resolve "
+            f"{resolve.launches}")
+        if not bid_topk.launches == resolve.launches == \
+                mt["its"] * mt["n_shards"]:
+            raise AssertionError(f"sharded {name}: launches")
+        results[name] = res
+        launches[name] = dict(bid_topk=bid_topk.launches,
+                              commit=resolve.launches)
+        if name == "square_f32":
+            cpu = AuctionSolver(loc=loc, val=val, shape=shape, mode="cpu",
+                                cardinality_check=False).solve()["meta"]
+            gap = abs(mt["obj"] - cpu["obj"])
+            bound = shape[0] * mt["final_eps"]
+            log(f"[11 sharded] {name}: |obj - obj_cpu| {gap!r} <= n * "
+                f"eps_min {bound!r}: {gap <= bound}")
+            if not (mt["soln_found"] and gap <= bound):
+                raise AssertionError(f"sharded {name}: objective off")
+    return results, launches
+
+
+def _same_as_cpu_mesh(results, cpu_out) -> None:
+    """The card's solves against the CPU meshes, bit for bit (sol,
+    prices, its, phases, unassigned, final_eps, obj)."""
+    for name, res in results.items():
+        cpu_meta = json.loads(str(cpu_out[name + "_meta"]))
+        mt = _meta_keys(res["meta"])
+        same = (np.array_equal(res["sol"], cpu_out[name + "_sol"])
+                and np.array_equal(res["prices"].view(np.int32),
+                                   cpu_out[name + "_prices"].view(np.int32))
+                and mt == {k: cpu_meta[k] for k in mt})
+        log(f"[11 sharded] {name}: CUDA == CPU mesh "
+            f"({cpu_meta['seconds']:.1f} s) bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"sharded {name}: CUDA != CPU mesh")
+
+
+def _batched_mesh(dev):
+    """auction_solve_batched(mode='device') over a 'batch' mesh of [cuda]
+    * 2 against the call without a mesh, at B = 4, n = 256 (phase 10's
+    parity batch): sols and metas equal."""
+    batch = stack_problems([from_coo(*make_sparse(256, 256, NNZ3,
+                                                  seed=200 + b,
+                                                  integer=False),
+                                     shape=(256, 256), pad_to=NNZ3 + 4)
+                            for b in range(4)])
+    one = auction_solve_batched(batch, mode="device", device=DEVICE)
+    two = auction_solve_batched(batch, mode="device",
+                                mesh=PP.make_mesh([dev] * 2, "batch"))
+    keys = ("its", "phases", "obj", "final_eps", "unassigned")
+    same = np.array_equal(one[0], two[0]) and all(
+        a[k] == b[k] for a, b in zip(one[1], two[1]) for k in keys)
+    log(f"[11 sharded] batched mode='device' B=4 n=256 over a mesh of 2: == "
+        f"no mesh (sols, its, phases, obj): {same}; its "
+        f"{[mt['its'] for mt in two[1]]}")
+    if not same:
+        raise AssertionError("batched over a mesh != without a mesh")
+
+
+@contextlib.contextmanager
+def sharded_cpu_child():
+    """The CPU meshes of phase 11 in a child process (``--sharded-cpu``)
+    on one host core (its shard threads take turns), beside the card's
+    solves; yields (process, output path) and kills it if it still runs
+    at exit."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded_cpu.npz")
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-cpu",
+             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            yield child, path
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+
+def phase_sharded(prob):
+    """Phase 11.  The headline's timings first, then the CPU meshes' child
+    starts beside the card's other solves.  Returns the kernels-line
+    numbers: launches, the profiler split and the resolve launch's
+    timing."""
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    launches, prof, res_t = _sharded_headline(prob)
+    with sharded_cpu_child() as (child, path):
+        results, solver_launches = _sharded_parity()
+        launches.update(solver_launches)
+        _batched_mesh(dev)
+        t0 = time.perf_counter()
+        out, _ = child.communicate(timeout=900)
+        for line in out.splitlines():
+            log(line)
+        if child.returncode != 0:
+            raise RuntimeError(f"--sharded-cpu failed ({child.returncode})")
+        with np.load(path) as cpu_out:
+            _same_as_cpu_mesh(results, cpu_out)
+    log(f"[11 sharded] phase 11 in {time.perf_counter() - t_phase:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s waiting for the CPU meshes)")
+    return launches, prof, res_t
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2499,6 +2925,7 @@ def main() -> None:
     ladder = phase_ladder(inp)
     phase_parity()
     launches, cold_its = phase_headline(solver, loc, vv, inp)
+    head = solver.problem_spec
     del solver
     k3 = phase_gs(inp, cold_its)
     del inp
@@ -2506,17 +2933,27 @@ def main() -> None:
     phase_jacobi()
     probes = phase_probes()
     dk, k1b, k2b, prof, hy_launches, dev_launches = phase_batch()
+    sh_launches, sh_prof, sh_resolve = phase_sharded(head)
+    del head
     # the batched paths of K1 (mode='device') and K2 (both batched modes),
     # and each one's device time in one mode='device' call (profiler)
+    # and the sharded path's launches (phase 11: K1, and K2's resolve
+    # launch alone), with the profiler split of 4 shards on the headline
     batched = {
         "bid_topk": dict(batched_launches=dev_launches["bid_topk_batched"],
                          batched_device_mode_ms=prof["k1_ms"],
-                         **{f"batched_{k}": v for k, v in k1b.items()}),
+                         **{f"batched_{k}": v for k, v in k1b.items()},
+                         sharded_launches={k: v["bid_topk"] for k, v in
+                                           sh_launches.items()},
+                         sharded_profile=sh_prof),
         "commit": dict(batched_launches={
             "hybrid": hy_launches["commit"],
             "device": dev_launches["commit"]},
             batched_device_mode_ms=prof["k2_ms"],
-            **{f"batched_{k}": v for k, v in k2b.items()}),
+            **{f"batched_{k}": v for k, v in k2b.items()},
+            sharded_launches={k: v["commit"] for k, v in
+                              sh_launches.items()},
+            sharded_resolve=sh_resolve),
     }
     kernels = []
     for name in ("bid_topk", "commit"):
@@ -2623,5 +3060,7 @@ if __name__ == "__main__":
         k12(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--k3":
         k3(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-cpu":
+        sharded_cpu(sys.argv[2])
     else:
         main()

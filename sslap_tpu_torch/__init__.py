@@ -6,9 +6,12 @@ through the hand-written Hopper kernels in ``ops/``, then the native C++
 host finisher), the dense engine (``engine='dense'``), the pure device
 mode, the native CPU mode, the batched solves of many independent
 instances (``auction_solve_batched`` over ``stack_problems`` /
-``batch_from_dense``), ``hopcroft_solve``, ``linear_sum_assignment`` and
-the device Gauss-Seidel op ``gs_auction_device``.  ``sslap_tpu`` (JAX)
-stays the reference; this package imports torch and numpy, never jax.
+``batch_from_dense``), ``hopcroft_solve``, ``linear_sum_assignment``,
+the device Gauss-Seidel op ``gs_auction_device``, the device greedy seed
+of the Hopcroft-Karp check (``feasibility_device``) and the row-sharded
+Jacobi solve over a mesh of devices (``parallel``, single process).
+``sslap_tpu`` (JAX) stays the reference; this package imports torch and
+numpy, never jax.
 """
 
 from sslap_tpu_torch.api import (
@@ -22,8 +25,11 @@ from sslap_tpu_torch.api import (
 from sslap_tpu_torch.batch import auction_solve_batched, batch_from_dense, \
     stack_problems
 from sslap_tpu_torch.config import AuctionConfig
-from sslap_tpu_torch.ingest import ELLProblem, from_coo, from_csr, from_dense
+from sslap_tpu_torch.ingest import ELLProblem, from_coo, from_csr, \
+    from_dense, to_dense
 from sslap_tpu_torch.ops import gs_auction_device
+
+__version__ = "0.1.0"
 
 __all__ = [
     "AuctionConfig",
@@ -41,4 +47,6 @@ __all__ = [
     "hopcroft_solve",
     "linear_sum_assignment",
     "stack_problems",
+    "to_dense",
+    "__version__",
 ]

@@ -13,7 +13,10 @@ is also the resolve step of the commit kernel's plain twin.
 ``jacobi_round`` is that round as the solver runs it (K1 then K2 over the
 id list of the rows that bid), and with ``dummy_grab_step``,
 ``unassign_violators`` and ``solve_ell`` it makes the Jacobi device path:
-``mode='device'`` and the rectangular hybrid's device phases.
+``mode='device'`` and the rectangular hybrid's device phases.  The
+reference's injection points (``combine``, ``count_unassigned``,
+``row_offset``, ``combine_owner``, ``on_round``) let one shard of rows run
+``solve_ell`` with its collectives (``parallel/sharded.py``).
 
 Tie-breaks (the determinism contract): a row bids for its highest value,
 lowest column among equals (ELL columns are sorted, argmax takes the first
@@ -284,9 +287,18 @@ def resolve_bids(tgt, bid, m: int, row_ids
     return best[:m], winner[:m]
 
 
-def commit_bids(best, winner, prices, owner, sigma):
+def _local_rows(rows, mask, row_offset, n: int):
+    """int64 local indices of the global ``rows`` where ``mask`` holds and
+    the row lies in this shard's [row_offset, row_offset + n), else n."""
+    loc = rows.long() - row_offset
+    return torch.where(mask & (loc >= 0) & (loc < n), loc, n)
+
+
+def commit_bids(best, winner, prices, owner, sigma, row_offset=0):
     """Apply resolved bids: raise prices, install winners, evict previous
-    owners.  Returns new (prices, owner, sigma)."""
+    owners.  ``sigma`` may be a shard's rows (global ids ``row_offset`` +
+    its index): winner and owner carry global ids, and rows outside the
+    shard are left alone.  Returns new (prices, owner, sigma)."""
     m = prices.shape[0]
     n = sigma.shape[0]
     has = best > half_neg(prices.dtype)
@@ -294,8 +306,8 @@ def commit_bids(best, winner, prices, owner, sigma):
     col_idx = torch.arange(m, dtype=torch.int32, device=prices.device)
     # slot n absorbs the writes of columns that got no bid
     sig = torch.cat([sigma, sigma.new_full((1,), -1)])
-    sig[torch.where(has & (owner >= 0), owner, n).long()] = -1
-    sig[torch.where(has, winner, n).long()] = col_idx
+    sig[_local_rows(owner, has & (owner >= 0), row_offset, n)] = -1
+    sig[_local_rows(winner, has, row_offset, n)] = col_idx
     new_owner = torch.where(has, winner, owner)
     return new_prices, new_owner, sig[:n]
 
@@ -341,20 +353,43 @@ class SolveResult(NamedTuple):
 
 
 def jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
-                 keys=None):
+                 keys=None, row_offset=0, combine=None):
     """One full-width Jacobi round: every unassigned row with entries bids
     (K1 over the id list ``sigma < 0 & nvalid > 0``, pad = n, which are
     exactly the rows ``compute_bids`` leaves unmasked), then K2 resolves
     and commits.  ``vals_m``: values with padding = neg sentinel.
     ``prices``, ``owner`` and ``sigma`` are updated IN PLACE and returned;
-    ``keys`` is K2's [m] scratch on CUDA."""
+    ``keys`` is K2's [m] scratch on CUDA (all zero on entry and exit).
+
+    With ``combine`` the rows are one shard (global ids ``row_offset`` +
+    local id): the shard resolves its bids under global ids, ``combine``
+    merges the shards' per-column results, and every shard applies the
+    same commit to its replicas (``commit_bids``).  On the CPU that is
+    ``resolve_bids`` and ``combine(best, winner)``; on CUDA, K2's resolve
+    launch alone into ``keys``, ``combine.keys(keys)`` (one max of the
+    shards' key tables) and ``decode_keys``."""
     from sslap_tpu_torch.ops import bid_topk, commit
+    from sslap_tpu_torch.ops.commit import decode_keys, resolve
     n = sigma.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=sigma.device)
     ids = torch.where((sigma < 0) & (nvalid > 0), rows, n)
     tgt, bid = bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner, eps,
                         bigp)
-    commit(ids, tgt, bid, prices, owner, sigma, keys)
+    if combine is None:
+        commit(ids, tgt, bid, prices, owner, sigma, keys)
+        return prices, owner, sigma
+    gids = ids + row_offset          # pads (tgt == m) resolve nowhere
+    if keys is not None:
+        resolve(gids, tgt, bid, keys)
+        best, winner = decode_keys(combine.keys(keys), prices.dtype)
+        keys.zero_()
+    else:
+        best, winner = combine(*resolve_bids(tgt, bid, prices.shape[0],
+                                             gids))
+    p, o, s = commit_bids(best, winner, prices, owner, sigma, row_offset)
+    prices.copy_(p)
+    owner.copy_(o)
+    sigma.copy_(s)
     return prices, owner, sigma
 
 
@@ -387,10 +422,12 @@ def _lane_eps(eps):
     return 1, eps
 
 
-def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int, lanes=None):
+def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int, lanes=None,
+                    row_offset=0):
     """Place every unassigned dummy (the reference's ``dummy_grab_step``):
     per instance the u_d cheapest columns (stable sort: ties to the lowest
-    column) go to its dummies at t + eps, evicting their real owners.
+    column) go to its dummies at t + eps, evicting their real owners
+    (``sigma`` may be a shard's rows, as in ``commit_bids``).
     ``prices``, ``owner`` and ``sigma`` are updated IN PLACE; returns them
     and u_d ([B])."""
     B, e = _lane_eps(eps)
@@ -405,9 +442,8 @@ def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int, lanes=None):
     rank.scatter_(1, order, torch.arange(m, device=P.device).expand(B, m))
     grab = rank < u_d[:, None]
     t = P.gather(1, order.gather(1, u_d.clamp(0, m - 1)[:, None]))
-    evict = torch.where(grab & (O >= 0), O, n).reshape(-1).long()
     sig = torch.cat([sigma, sigma.new_full((1,), -1)])
-    sig[evict] = -1
+    sig[_local_rows(O, grab & (O >= 0), row_offset, n).reshape(-1)] = -1
     sigma.copy_(sig[:n])
     O.copy_(torch.where(grab, DUMMY_OWNER, O))
     P.copy_(torch.where(grab, t + e, P))
@@ -415,12 +451,15 @@ def dummy_grab_step(prices, owner, sigma, eps, n_dummy: int, lanes=None):
 
 
 def unassign_violators(cols, vals_t, valid, prices, owner, sigma, eps,
-                       n_dummy: int, lanes=None):
+                       n_dummy: int, lanes=None, combine_owner=None):
     """Unassign only the pairs that violate eps-CS at the new ``eps``,
     keeping the rest as the phase's warm start; with dummies, also free
     dummy-held columns priced above the instance's min(prices) + eps.
     ``vals_t`` may be masked or not (only valid slots are read).
-    ``owner`` and ``sigma`` are updated IN PLACE and returned."""
+    ``owner`` and ``sigma`` are updated IN PLACE and returned.  On a shard
+    of rows each shard frees only its own rows' columns in its owner
+    replica; ``combine_owner`` (a min over the shards: freed -1 is below
+    every row id) makes the replicas equal again."""
     B, e = _lane_eps(eps)
     M = prices.shape[0]
     n = sigma.shape[0] // B
@@ -445,17 +484,21 @@ def unassign_violators(cols, vals_t, valid, prices, owner, sigma, eps,
             viol_d &= lanes[:, None]
         O.masked_fill_(viol_d, -1)
     owner.copy_(own[:M])
+    if combine_owner is not None:
+        owner.copy_(combine_owner(owner))
     return owner, sigma
 
 
-def count_unassigned(sigma, nvalid):
+def count_unassigned_rows(sigma, nvalid):
     """0-d tensor: rows with entries that hold no column."""
     return ((sigma < 0) & (nvalid > 0)).sum()
 
 
 def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
-              max_iter, *, n_global: Optional[int] = None, bigp=None,
-              keep_assignment: bool = True, theta_tail=None,
+              max_iter, *, combine=None, count_unassigned=None,
+              row_offset=0, n_global: Optional[int] = None, bigp=None,
+              on_round=None, keep_assignment: bool = True,
+              combine_owner=None, theta_tail=None,
               tail_phases: int = 2) -> SolveResult:
     """eps-scaled Jacobi auction over an ELL block on ``p0``'s device (the
     reference's ``solve_ell``): per phase, full-width rounds (plus the
@@ -465,7 +508,15 @@ def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
     whole assignment is reset.  ``bigp`` None derives it from the value
     range in the solver dtype.  Loop control runs on the host: one
     unassigned count is read back per round (``lane_phases`` with one
-    lane)."""
+    lane).
+
+    The reference's injection points, for one shard of a row-sharded solve
+    (``parallel/sharded.py``): ``combine`` merges the shards' resolved
+    bids (see ``jacobi_round``), ``count_unassigned(sigma)`` counts over
+    all shards, ``row_offset`` is the shard's first global row,
+    ``combine_owner`` re-converges the owner replicas after the violator
+    scan; ``n_global`` gives the dummy count m - n_global.  ``on_round``
+    (round, unassigned, eps) is called after every round."""
     n = cols.shape[0]
     m = p0.shape[0]
     n_dummy = m - (n if n_global is None else n_global)
@@ -480,22 +531,32 @@ def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
     owner = torch.full((m,), -1, dtype=torch.int32, device=device)
     sigma = torch.full((n,), -1, dtype=torch.int32, device=device)
 
+    if count_unassigned is None:
+        def count_unassigned(sig):
+            return count_unassigned_rows(sig, nvalid)
+
     def left():
-        c = count_unassigned(sigma, nvalid)
+        c = count_unassigned(sigma)
         if n_dummy > 0:
             c = c + count_unassigned_dummies(owner, n_dummy)
         return np.array([int(c)])
 
+    done = [0]
+
     def step(lanes, eps_of, eps):
         jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps[0],
-                     bigp, keys)
+                     bigp, keys, row_offset=row_offset, combine=combine)
         if n_dummy > 0:
-            dummy_grab_step(prices, owner, sigma, eps[0], n_dummy)
+            dummy_grab_step(prices, owner, sigma, eps[0], n_dummy,
+                            row_offset=row_offset)
+        done[0] += 1
+        if on_round is not None:
+            on_round(done[0], int(count_unassigned(sigma)), eps[0])
 
     def scan(lanes, eps_of, eps):
         if keep_assignment:
             unassign_violators(cols, vals_t, valid, prices, owner, sigma,
-                               eps[0], n_dummy)
+                               eps[0], n_dummy, combine_owner=combine_owner)
         else:
             sigma.fill_(-1)
             owner.fill_(-1)
@@ -505,7 +566,7 @@ def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
         scan, theta_tail=theta_tail, tail_phases=tail_phases)
     return SolveResult(sigma=sigma, prices=prices, rounds=int(rounds[0]),
                        phases=int(phases[0]), final_eps=eps[0],
-                       unassigned=int(count_unassigned(sigma, nvalid)))
+                       unassigned=int(count_unassigned(sigma)))
 
 
 def lane_phases(B: int, dev, dt, eps0, eps_min, theta, max_iter: int,

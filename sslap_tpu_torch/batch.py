@@ -22,7 +22,10 @@ the batch; ``batch_from_dense`` builds one from a [B, n, m] stack).
             the dense hybrid, which beats 'cpu' on config 3 on the H100;
             'device' is the slowest arm there (PERF.md).
 
-Batches sharded over a mesh (``mesh=``) are not ported yet.
+With ``mesh=`` the batch splits into equal blocks of instances over the
+mesh's ``batch_axis``, each block solved by 'device' on its device (data
+parallel, no collective: instances are independent, so the results equal
+the call without a mesh); 'cpu' ignores the mesh, as the reference does.
 """
 
 from __future__ import annotations
@@ -200,9 +203,11 @@ def auction_solve_batched(
     chunk takes its own value range, transform and eps schedule, as there)
     and in 'hybrid' mode (default: as many dense blocks as fit 2 GiB).
     ``device`` is where the device rounds run ("cpu" runs the kernels'
-    plain twins).  ``mesh``/``batch_axis`` (the batch sharded over
-    devices) are not ported yet."""
-    from sslap_tpu_torch.api import _not_ported, _objective_host
+    plain twins).  ``mesh`` (a ``parallel.Mesh``) shards the batch over
+    its ``batch_axis`` in 'device' mode: B must divide evenly over it, and
+    block i of B / size instances runs on the mesh's device i (no
+    chunking)."""
+    from sslap_tpu_torch.api import _objective_host
     cols, vals, valid, nvalid = prob.cols, prob.vals, prob.valid, prob.nvalid
     if cols.ndim != 3:
         raise ValueError("expected batched ELLProblem with leading axis")
@@ -230,9 +235,6 @@ def auction_solve_batched(
         raise ValueError(
             "float64 / exact-large-integer batched costs are solved on the "
             "host path: use mode='cpu' (or 'auto', without mesh=)")
-    if mesh is not None:
-        raise _not_ported("auction_solve_batched(mesh=) (ROADMAP.md queue 1 "
-                          "item 9, parallel/)")
     if mode == "cpu":
         from sslap_tpu_torch import hybrid as _hybrid
         sols = np.full((B, prob.n), -1, np.int32)
@@ -252,30 +254,40 @@ def auction_solve_batched(
         for mt in metas:
             mt["time"] = time.perf_counter() - t0
         return sols, metas
-    if chunk is None and B * prob.n > 1_000_000 and B > 32:
-        chunk = 32
-    # the flattened row and column ids of one pass must fit int32
-    limit = (I32_MAX - 1) // max(prob.n, prob.m)
-    if B > limit:
-        chunk = min(chunk or limit, limit)
-    if chunk is not None and chunk < B:
-        sols_parts, metas = [], []
-        for lo in range(0, B, chunk):
-            hi = min(lo + chunk, B)
-            sub = ELLProblem(cols=cols[lo:hi], vals=vals[lo:hi],
-                             valid=valid[lo:hi], nvalid=nvalid[lo:hi],
-                             n=prob.n, m=prob.m, int_exact=prob.int_exact)
-            s_part, m_part = auction_solve_batched(
-                sub, problem=problem, eps_start=eps_start, eps_min=eps_min,
-                theta=theta, max_iter=max_iter,
-                warm_prices=None if warm_prices is None
-                else warm_prices[lo:hi], chunk=chunk, mode="device",
-                device=device)
-            sols_parts.append(s_part)
-            metas.extend(m_part)
-        return np.concatenate(sols_parts, axis=0), metas
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if mesh is None:        # a mesh splits the batch itself: no chunks
+        if chunk is None and B * prob.n > 1_000_000 and B > 32:
+            chunk = 32
+        # the flattened row and column ids of one pass must fit int32
+        limit = (I32_MAX - 1) // max(prob.n, prob.m)
+        if B > limit:
+            chunk = min(chunk or limit, limit)
+        if chunk is not None and chunk < B:
+            sols_parts, metas = [], []
+            for lo in range(0, B, chunk):
+                hi = min(lo + chunk, B)
+                sub = ELLProblem(cols=cols[lo:hi], vals=vals[lo:hi],
+                                 valid=valid[lo:hi], nvalid=nvalid[lo:hi],
+                                 n=prob.n, m=prob.m,
+                                 int_exact=prob.int_exact)
+                s_part, m_part = auction_solve_batched(
+                    sub, problem=problem, eps_start=eps_start,
+                    eps_min=eps_min, theta=theta, max_iter=max_iter,
+                    warm_prices=None if warm_prices is None
+                    else warm_prices[lo:hi], chunk=chunk, mode="device",
+                    device=device)
+                sols_parts.append(s_part)
+                metas.extend(m_part)
+            return np.concatenate(sols_parts, axis=0), metas
+    if mesh is None:
+        devices = [torch.device(device)]
+    else:
+        devices = mesh.devices
+        if B % mesh.shape[batch_axis] != 0:
+            raise ValueError(
+                f"batch size {B} must divide evenly over the "
+                f"{mesh.shape[batch_axis]}-way '{batch_axis}' mesh axis")
+    if any(d.type == "cuda" for d in devices) and \
+            not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device is "
                            "available")
     vmax_abs = float(np.abs(vals[valid]).max()) if valid.any() else 0.0
@@ -288,22 +300,31 @@ def auction_solve_batched(
         max_iter = _auction.default_max_iter(prob.n)
     p0 = (np.zeros((B, prob.m), vals.dtype) if warm_prices is None
           else np.asarray(warm_prices, vals.dtype))
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-    res = solve_ell_batched(t(cols), t(tr.apply(vals)), t(valid),
-                            t(nvalid.astype(np.int32)), t(p0), e0, e_min,
-                            theta_v, max_iter, n_global=prob.n)
-    sols = res.sigma.cpu().numpy()
+    vals_t = tr.apply(vals)
+    per = B // len(devices)
+    parts = []
+    for i, dev in enumerate(devices):     # one block of instances a device
+        blk = slice(i * per, (i + 1) * per)
+        t = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a[blk])).to(dev)
+        parts.append(solve_ell_batched(
+            t(cols), t(vals_t), t(valid), t(nvalid.astype(np.int32)), t(p0),
+            e0, e_min, theta_v, max_iter, n_global=prob.n))
+    sols = np.concatenate([r.sigma.cpu().numpy() for r in parts])
+    rounds, phases, final_eps, left = (
+        np.concatenate([getattr(r, f) for r in parts])
+        for f in ("rounds", "phases", "final_eps", "unassigned"))
     t1 = time.perf_counter()
     metas = []
     for b in range(B):
-        unassigned = int(res.unassigned[b]) + int((nvalid[b] == 0).sum())
+        unassigned = int(left[b]) + int((nvalid[b] == 0).sum())
         metas.append({
             "obj": (_objective_host(_instance(prob, b), sols[b])
                     if unassigned == 0 else None),
-            "its": int(res.rounds[b]),
-            "phases": int(res.phases[b]),
+            "its": int(rounds[b]),
+            "phases": int(phases[b]),
             "soln_found": unassigned == 0,
-            "final_eps": float(res.final_eps[b]) / tr.scale,
+            "final_eps": float(final_eps[b]) / tr.scale,
             "unassigned": unassigned,
             "time": t1 - t0,
         })

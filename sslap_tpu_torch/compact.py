@@ -157,7 +157,7 @@ def solve_tiered(cols, vals_m, nvalid, p0, eps0, eps_min, theta, max_iter,
                                     tail_phases=tail_phases)
         run_phase(st, first=False)
         done = st.eps <= eps_min or st.rounds >= max_iter
-    unassigned = int(_auction.count_unassigned(st.sigma, nvalid))
+    unassigned = int(_auction.count_unassigned_rows(st.sigma, nvalid))
     res = _auction.SolveResult(sigma=st.sigma, prices=st.prices,
                                rounds=st.rounds, phases=st.phases,
                                final_eps=st.eps, unassigned=unassigned)

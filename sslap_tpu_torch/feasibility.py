@@ -1,8 +1,11 @@
 """Hopcroft-Karp maximum bipartite matching (host): the solver's
 cardinality pre-check.  Counterpart of ``sslap_tpu/feasibility.py``; the
 native C++ matcher is the shared one, and the pure-Python path below is
-its no-toolchain fallback with the same scan order.  The reference's
-device greedy seed is off by default there and is not carried yet.
+its no-toolchain fallback with the same scan order.  ``device_seed=True``
+first runs the device greedy maximal matching (``feasibility_device``) and
+warm-starts the augmentation from it; off by default, as in the
+reference.  Unlike the reference, a device seed that fails raises: there
+is no fallback to the host seed.
 """
 
 from __future__ import annotations
@@ -154,19 +157,31 @@ def sanitize_matching(prob: ELLProblem, warm
 
 
 def hopcroft_karp(prob: ELLProblem, use_native: bool = True,
+                  device_seed: Optional[bool] = None,
                   init_match: Optional[Tuple[np.ndarray,
-                                             np.ndarray]] = None):
-    """Maximum matching of an ELLProblem's sparsity pattern."""
+                                             np.ndarray]] = None,
+                  device="cuda"):
+    """Maximum matching of an ELLProblem's sparsity pattern.
+    ``device_seed`` (None = False, the host seed): seed the augmentation
+    with the greedy maximal matching computed on ``device``; it raises if
+    that pass fails.  ``init_match`` (match_row, match_col) overrides the
+    seed."""
     indptr, indices = _ell_to_csr(prob)
+    init = init_match
+    if init is None and device_seed and prob.n > 0:
+        from sslap_tpu_torch import feasibility_device as _fd
+        init = _fd.greedy_matching(prob, device=device)
     return hopcroft_karp_csr(indptr, indices, prob.n, prob.m,
-                             use_native=use_native, init_match=init_match)
+                             use_native=use_native, init_match=init)
 
 
-def is_feasible(prob: ELLProblem, use_native: bool = True) -> bool:
+def is_feasible(prob: ELLProblem, use_native: bool = True,
+                device_seed: Optional[bool] = None, device="cuda") -> bool:
     """True iff a perfect (all-rows) matching exists."""
     if prob.n == 0:
         return True
     if (prob.nvalid == 0).any():
         return False
-    _, _, size = hopcroft_karp(prob, use_native=use_native)
+    _, _, size = hopcroft_karp(prob, use_native=use_native,
+                               device_seed=device_seed, device=device)
     return size == prob.n

@@ -128,7 +128,7 @@ def _device_phase(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
     eps, bigp = dt(eps), dt(bigp)
 
     def active():
-        a = _auction.count_unassigned(sigma, nvalid)
+        a = _auction.count_unassigned_rows(sigma, nvalid)
         if n_dummy > 0:
             a = a + _auction.count_unassigned_dummies(owner, n_dummy)
         return int(a)

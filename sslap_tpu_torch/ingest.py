@@ -123,10 +123,12 @@ def _build_ell_from_coo(rr, cc, vv, n, m, dtype, pad_to=None,
                       int_exact=int_exact)
 
 
-def from_dense(mat, *, dtype=None, pad_to: Optional[int] = None
-               ) -> ELLProblem:
+def from_dense(mat, *, dtype=None, pad_to: Optional[int] = None,
+               require_nonnegative: bool = True) -> ELLProblem:
     """Dense matrix -> ELLProblem.  Negative and NaN entries are
-    forbidden assignments."""
+    forbidden assignments.  ``require_nonnegative`` is accepted for the
+    reference's signature and unused: the ``>= 0`` mask already keeps
+    every valid cost non-negative."""
     mat = np.asarray(mat)
     if mat.ndim != 2:
         raise ValueError(
@@ -141,6 +143,7 @@ def from_dense(mat, *, dtype=None, pad_to: Optional[int] = None
         valid = mat >= 0
     rr, cc = np.nonzero(valid)
     vv = mat[rr, cc]
+    del require_nonnegative
     sdt, int_exact = _solver_dtype(vv if vv.size else mat, dtype, m=m)
     return _build_ell_from_coo(rr.astype(np.int64), cc.astype(np.int64), vv,
                                n, m, sdt, pad_to=pad_to, int_exact=int_exact)
@@ -196,3 +199,24 @@ def from_csr(indptr, indices, data, *,
         shape = (n, int(cc.max()) + 1 if cc.size else 0)
     return from_coo(np.stack([rr, cc], axis=1), np.asarray(data),
                     shape=shape, dtype=dtype, pad_to=pad_to)
+
+
+def to_coo(prob: ELLProblem) -> Tuple[np.ndarray, np.ndarray]:
+    """ELLProblem -> (loc [nnz, 2] int64, val [nnz]) of the valid entries
+    in row-major order: from_coo's inverse up to entry order."""
+    rr = np.repeat(np.arange(prob.n, dtype=np.int64), prob.K) \
+        .reshape(prob.n, prob.K)
+    loc = np.stack([rr[prob.valid], prob.cols[prob.valid].astype(np.int64)],
+                   axis=1)
+    return loc, prob.vals[prob.valid]
+
+
+def to_dense(prob: ELLProblem, forbidden_value=-1.0) -> np.ndarray:
+    """ELLProblem -> dense [n, m] matrix, forbidden entries set to
+    ``forbidden_value`` (in the result type of the costs and that value)."""
+    out = np.full((prob.n, prob.m), forbidden_value,
+                  dtype=np.result_type(prob.vals.dtype,
+                                       type(forbidden_value)))
+    rr = np.repeat(np.arange(prob.n), prob.K).reshape(prob.n, prob.K)
+    out[rr[prob.valid], prob.cols[prob.valid]] = prob.vals[prob.valid]
+    return out

@@ -76,6 +76,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # ids, tgt, bid, C, n, m, keys, prices, owner, sigma, stay,
         # evicted, counts, stream
         fn.argtypes = [p, p, p, i64, i32, i32, p, p, p, p, p, p, p, p]
+        fn = getattr(lib, f"sslap_resolve_{suffix}")
+        fn.restype = ctypes.c_int
+        # ids, tgt, bid, C, m, keys, stream
+        fn.argtypes = [p, p, p, i64, i32, p, p]
         fn = getattr(lib, f"sslap_ladder_{suffix}")
         fn.restype = ctypes.c_int
         # cols, vals_m, nvalid, prices, owner, sigma, keys, ids0, ids1,

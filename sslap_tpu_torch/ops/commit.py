@@ -11,8 +11,16 @@ touches), then a commit; its note says what bounds it on the card.
 ``commit_plain`` is the same function as torch ops around
 ``auction.resolve_bids`` (scatter-reduce amax, then amin).
 
-``commit`` dispatches by device: a CPU tensor goes to the twin, a CUDA
-tensor launches the kernel (or raises), and nothing falls back.
+``resolve`` is the kernel's first launch alone, for the sharded round
+(``parallel/sharded.py``): a shard folds its bids into its [m] key table,
+the shards' tables are combined by one elementwise max (``keys_max``) and
+decoded (``decode_keys``) into the reference's combined (best, winner).
+``resolve_plain`` is the same as torch ops: the keys of ``bid_key_np``'s
+rule, a scatter max per column.
+
+``commit`` and ``resolve`` dispatch by device: a CPU tensor goes to the
+twin, a CUDA tensor launches the kernel (or raises), and nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -20,8 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sslap_tpu_torch.auction import I32_MAX, resolve_bids
+from sslap_tpu_torch.auction import I32_MAX, neg_sentinel, resolve_bids
 from sslap_tpu_torch.ops import _build
+
+# A key's bit 63 flipped: its unsigned order is then the signed int64
+# order, so torch's signed max and scatter max compare keys as the kernel's
+# unsigned atomicMax does (the key of every non-negative bid has bit 63
+# set).
+KEY_FLIP = -2 ** 63
 
 
 def commit_plain(ids, tgt, bid, prices, owner, sigma):
@@ -127,3 +141,91 @@ def bid_key_decode_np(keys: np.ndarray, dtype):
                      ~hi)
         return u.view(np.float32), rows
     return (hi ^ np.uint32(0x80000000)).view(np.int32), rows
+
+
+def _flipped_keys(bid: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """int64 keys of ``bid_key_np``'s rule with bit 63 flipped:
+    (order bits - 2**31) * 2**32 + (2**32 - 1 - row)."""
+    if bid.dtype == torch.float32:
+        u = (bid + 0).view(torch.int32).long() & 0xFFFFFFFF  # -0.0 -> +0.0
+        order = torch.where(u >= 2 ** 31, 0xFFFFFFFF - u, u + 2 ** 31)
+    elif bid.dtype == torch.int32:
+        order = bid.long() + 2 ** 31
+    else:
+        raise TypeError(f"unsupported bid dtype {bid.dtype}")
+    return (order - 2 ** 31) * 2 ** 32 + (0xFFFFFFFF - rows.long())
+
+
+def resolve_plain(ids, tgt, bid, keys):
+    """Plain torch twin of the resolve launch: every bid (tgt < m) folded
+    into ``keys`` [m] int64 (the kernel's unsigned keys, 0 = no bid) by a
+    max per column, IN PLACE.  ids [C] int32 are the rows the keys carry
+    (global ids on a shard); tgt [C] int32 (m = no bid); bid [C]."""
+    m = keys.shape[0]
+    table = torch.cat([keys ^ KEY_FLIP, keys.new_full((1,), KEY_FLIP)])
+    table.scatter_reduce_(0, tgt.long(), _flipped_keys(bid, ids), "amax")
+    keys.copy_(table[:m] ^ KEY_FLIP)
+    return keys
+
+
+def resolve(ids, tgt, bid, keys):
+    """K2's resolve launch alone: see ``resolve_plain`` for the contract.
+    CUDA tensors launch ``csrc/commit.cu``'s resolve kernel; ``keys`` is
+    not zeroed after it (the caller does that once it has combined)."""
+    if ids.device.type == "cpu":
+        return resolve_plain(ids, tgt, bid, keys)
+    if ids.device.type != "cuda":
+        raise RuntimeError(f"resolve: unsupported device {ids.device}")
+    dtype = bid.dtype
+    if dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"resolve: unsupported dtype {dtype}")
+    C = ids.shape[0]
+    m = keys.shape[0]
+    for name, t, dt, shape in (
+            ("ids", ids, torch.int32, (C,)), ("tgt", tgt, torch.int32, (C,)),
+            ("bid", bid, dtype, (C,)), ("keys", keys, torch.int64, (m,))):
+        if t.device != ids.device or t.dtype != dt or \
+                not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"resolve: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {ids.device}")
+    lib = _build.load()
+    fn = (lib.sslap_resolve_f32 if dtype == torch.float32
+          else lib.sslap_resolve_i32)
+    err = fn(ids.data_ptr(), tgt.data_ptr(), bid.data_ptr(), C, m,
+             keys.data_ptr(),
+             torch.cuda.current_stream(ids.device).cuda_stream)
+    _build.check(err, "resolve")
+    resolve.launches += 1
+    return keys
+
+
+resolve.launches = 0
+
+
+def keys_max(tables):
+    """Elementwise max, in the kernel's unsigned key order, of key tables
+    on one device: one max is the reference's pmax of best, then pmin of
+    winner among the tables that hold it."""
+    out = tables[0] ^ KEY_FLIP
+    for t in tables[1:]:
+        out = torch.maximum(out, t ^ KEY_FLIP)
+    return out ^ KEY_FLIP
+
+
+def decode_keys(keys: torch.Tensor, dtype: torch.dtype):
+    """(best [m] in ``dtype``, winner [m] int32) of a key table: the neg
+    sentinel and INT32_MAX where no bid landed, as ``auction.resolve_bids``
+    leaves them.  A zero bid decodes as +0.0 (keys canonicalise -0.0)."""
+    has = keys != 0
+    hi = (keys >> 32) & 0xFFFFFFFF
+    winner = torch.where(has, 0xFFFFFFFF - (keys & 0xFFFFFFFF), I32_MAX)
+    if dtype == torch.float32:
+        bits = torch.where(hi >= 2 ** 31, hi - 2 ** 31, 0xFFFFFFFF - hi)
+    elif dtype == torch.int32:
+        bits = hi ^ 2 ** 31
+    else:
+        raise TypeError(f"unsupported bid dtype {dtype}")
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    best = bits.to(torch.int32).view(dtype)
+    best = torch.where(has, best, torch.full_like(best, neg_sentinel(dtype)))
+    return best, winner.to(torch.int32)

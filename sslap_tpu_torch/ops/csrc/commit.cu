@@ -28,7 +28,8 @@
 // Outputs: stay (losers, else n), evicted (previous owners, else n).  The
 // eps-phase ladder (ladder.cu) runs round.cuh's bid_key and commit_bid in
 // its stages A and B; this standalone pair serves auction.jacobi_round,
-// the batched Jacobi solve and the dense engine.  One cooperative launch
+// the batched Jacobi solve and the dense engine; the resolve launch alone
+// (sslap_resolve_*) serves the sharded round.  One cooperative launch
 // with a grid barrier between the passes was tried and lost: 6.5 us a
 // launch with no bidder against 4.7 us for the two, and the batched
 // mode='device' solve launches K2 on mostly dead id lists (PERF.md).
@@ -75,7 +76,7 @@ __global__ void __launch_bounds__(sslap::kBlock)
                    unsigned long long* keys, int32_t* counts) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
-  if (i < 3) counts[i] = 0;
+  if (i < 3 && counts != nullptr) counts[i] = 0;
   // i - lane is the warp's first slot: the exit is warp-uniform
   if (i - (threadIdx.x & 31) >= C) return;
   const int32_t j = i < C ? __ldg(tgt + i) : m;
@@ -153,9 +154,35 @@ int launch_commit(const int32_t* ids, const int32_t* tgt, const T* bid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The resolve launch alone (the sharded round, parallel/sharded.py): the
+// shard's bids folded into its [m] key table, which the caller combines
+// across shards (an elementwise max) and zeroes again itself.
+template <typename T>
+int launch_resolve(const int32_t* ids, const int32_t* tgt, const T* bid,
+                   int64_t C, int32_t m, unsigned long long* keys,
+                   void* stream) {
+  const unsigned grid = C > 0 ? sslap::grid_for(C) : 1;
+  resolve_kernel<T><<<grid, sslap::kBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      ids, tgt, bid, C, m, keys, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+int sslap_resolve_f32(const int32_t* ids, const int32_t* tgt,
+                      const float* bid, int64_t C, int32_t m,
+                      unsigned long long* keys, void* stream) {
+  return launch_resolve<float>(ids, tgt, bid, C, m, keys, stream);
+}
+
+int sslap_resolve_i32(const int32_t* ids, const int32_t* tgt,
+                      const int32_t* bid, int64_t C, int32_t m,
+                      unsigned long long* keys, void* stream) {
+  return launch_resolve<int32_t>(ids, tgt, bid, C, m, keys, stream);
+}
 
 int sslap_commit_f32(const int32_t* ids, const int32_t* tgt,
                      const float* bid, int64_t C, int32_t n, int32_t m,

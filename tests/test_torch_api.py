@@ -174,9 +174,9 @@ def test_infeasible_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="sharded"), dict(mode="overlapped"),
-    dict(mode="sharded_hybrid"), dict(engine="candidates"),
-    dict(engine="candidates", mode="hybrid"),
+    dict(mode="overlapped"), dict(mode="sharded_hybrid"),
+    dict(engine="candidates"), dict(engine="candidates", mode="hybrid"),
+    dict(engine="candidates", mode="device"),
 ])
 def test_unported_modes_and_engines_raise(kw):
     loc, val = _instance(12, 50, True)

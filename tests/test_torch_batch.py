@@ -19,9 +19,19 @@ from sslap_tpu_torch import auction as PA
 from sslap_tpu_torch import batch as PB
 from sslap_tpu_torch import dense_batch as PD
 from sslap_tpu_torch import ingest as PI
+from sslap_tpu_torch import parallel as PP
 from tests.utils import random_sparse_instance, scipy_dense_objective
 
 TIMERS = ("time", "device_time", "host_gs_time")
+
+
+CPU = torch.device("cpu")
+
+
+def _ref_mesh(k, axis):
+    import jax
+    from sslap_tpu.parallel import make_mesh
+    return make_mesh(devices=jax.devices()[:k], axis_name=axis)
 
 
 def _bits(a):
@@ -276,13 +286,40 @@ def test_routing_errors_match_reference():
     f64 = PB.batch_from_dense(np.ones((2, 3, 3)), dtype=np.float64)
     with pytest.raises(ValueError, match="host path"):
         PB.auction_solve_batched(f64, mode="device", device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="queue 1 item 9.*ROADMAP.md"):
-        PB.auction_solve_batched(p, mode="device", mesh=object(),
-                                 device="cpu")
+    # B = 2 over a 3-way mesh: the reference's ValueError
+    with pytest.raises(ValueError, match="divide evenly over the 3-way"):
+        RB.auction_solve_batched(r, mode="device",
+                                 mesh=_ref_mesh(3, "batch"))
+    with pytest.raises(ValueError, match="divide evenly over the 3-way"):
+        PB.auction_solve_batched(p, mode="device",
+                                 mesh=PP.make_mesh([CPU] * 3, "batch"))
     _, sq = _batch(12, 2, 20, 20, True)
     with pytest.raises(ValueError, match="single-device"):
         PB.auction_solve_batched(sq, mode="hybrid", mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PB.auction_solve_batched(sq, mode="device")
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_equals_no_mesh(k):
+    """Data parallel over a 'batch' mesh of k CPU entries: each block of
+    4 / k instances runs the batched Jacobi solve on its device, and the
+    results equal the call without a mesh and the reference's over k of
+    its virtual devices (warm prices split with the instances).  'cpu'
+    ignores the mesh, as the reference does."""
+    r, p = _batch(21, 4, 18, 22, True)
+    warm = np.random.default_rng(3).integers(0, 40, (4, 22)).astype(np.int32)
+    one = PB.auction_solve_batched(p, mode="device", device="cpu",
+                                   warm_prices=warm)
+    got = PB.auction_solve_batched(p, mode="device", warm_prices=warm,
+                                   mesh=PP.make_mesh([CPU] * k, "batch"))
+    ref = RB.auction_solve_batched(r, mode="device", warm_prices=warm,
+                                   mesh=_ref_mesh(k, "batch"))
+    for a, b in ((got, one), (got, ref)):
+        np.testing.assert_array_equal(a[0], b[0])
+        _same_metas(b[1], a[1])
+    cpu = PB.auction_solve_batched(p, mode="cpu", device="cpu",
+                                   mesh=PP.make_mesh([CPU] * k, "batch"))
+    np.testing.assert_array_equal(
+        cpu[0], PB.auction_solve_batched(p, mode="cpu", device="cpu")[0])

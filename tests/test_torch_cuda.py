@@ -1027,3 +1027,105 @@ def test_dense_engine_on_cuda_matches_cpu(dev):
         np.testing.assert_array_equal(r["prices"], c["prices"])
         for k in ("its", "phases", "host_bids", "obj", "soln_found"):
             assert r["meta"][k] == c["meta"][k], k
+
+
+# ---------------------------------------------------------------------------
+# The sharded round (K2's resolve launch alone) and the device HK seed
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("C", [1, 3000, 131_072])
+def test_resolve_kernel_matches_plain(dev, dtype, C):
+    """K2's resolve launch alone (ops.commit.resolve): global row ids in
+    any order, equal, +-0.0 and negative bids, 10% without a bid, heavy
+    contention at C = 131,072 (a few hundred columns); folded twice into
+    one table (the second call onto the first's keys), exact."""
+    from sslap_tpu_torch.ops.commit import resolve, resolve_plain
+    rng = np.random.default_rng(C)
+    m = 4096 if C > 1 else 8
+    ids = rng.permutation(10 * C + 7)[:C].astype(np.int32) + 123_456
+    choices = (np.array([-1.5, -0.0, 0.0, 2.0, 7.0], np.float32)
+               if dtype == np.float32 else np.array([-3, 0, 5, 9], np.int32))
+    keys = {}
+    for side, d in (("kernel", dev), ("plain", torch.device("cpu"))):
+        keys[side] = torch.zeros(m, dtype=torch.int64, device=d)
+    launches = resolve.launches
+    for rep in range(2):
+        tgt = rng.integers(0, min(m, 300 + 3 * rep), C).astype(np.int32)
+        tgt[rng.random(C) < 0.1] = m
+        bid = rng.choice(choices, C)
+        for side, fn in (("kernel", resolve), ("plain", resolve_plain)):
+            d = keys[side].device
+            fn(*(torch.from_numpy(a).to(d) for a in (ids, tgt, bid)),
+               keys[side])
+    torch.cuda.synchronize()
+    assert resolve.launches == launches + 2
+    np.testing.assert_array_equal(keys["kernel"].cpu().numpy(),
+                                  keys["plain"].numpy())
+
+
+@pytest.mark.parametrize("case", ["square_f32", "rect_i32"])
+def test_sharded_round_on_one_card_matches_cpu(dev, case, monkeypatch):
+    """Three shards on one card ([cuda:0] * 3: K1, K2's resolve launch and
+    the key-table max each round) against three CPU shards (K1's plain
+    version, resolve_bids and the pmax/pmin combine) and one card shard:
+    sol, prices bits, rounds and phases equal; every key table is all zero
+    after the solve, and K1 and the resolve launched every round."""
+    import importlib
+    from sslap_tpu_torch import parallel as PP
+    K2 = importlib.import_module("sslap_tpu_torch.ops.commit")
+    n, m = (300, 300) if case == "square_f32" else (240, 300)
+    rng = np.random.default_rng(31)
+    rr = np.concatenate([np.repeat(np.arange(n), 6), np.arange(n)])
+    cc = np.concatenate([rng.integers(0, m, n * 6), rng.permutation(m)[:n]])
+    _, idx = np.unique(rr * m + cc, return_index=True)
+    loc = np.stack([rr[idx], cc[idx]], 1)
+    val = (rng.random(len(idx)) * 99 + 1).astype(np.float32) \
+        if case == "square_f32" else rng.integers(1, 100, len(idx))
+    tables = []
+    resolve = K2.resolve
+
+    def spy(ids, tgt, bid, keys):
+        tables.append(keys)
+        return resolve(ids, tgt, bid, keys)
+
+    # the wrapper counts its launches on the module's name, now the spy
+    monkeypatch.setattr(K2, "resolve", spy)
+    kw = dict(loc=loc, val=val, shape=(n, m), max_iter=3000)
+    bid_topk.launches = spy.launches = 0
+    on_card = PP.auction_solve_sharded(mesh=PP.make_mesh([dev] * 3), **kw)
+    torch.cuda.synchronize()
+    rounds = on_card["meta"]["its"]
+    assert bid_topk.launches == spy.launches == 3 * rounds > 0
+    assert all(int(t.count_nonzero()) == 0 for t in tables)
+    one = PP.auction_solve_sharded(mesh=PP.make_mesh([dev]), **kw)
+    cpu = PP.auction_solve_sharded(
+        mesh=PP.make_mesh([torch.device("cpu")] * 3), **kw)
+    for other in (one, cpu):
+        np.testing.assert_array_equal(on_card["sol"], other["sol"])
+        np.testing.assert_array_equal(_bits(torch.from_numpy(
+            on_card["prices"])), _bits(torch.from_numpy(other["prices"])))
+        assert all(on_card["meta"][k] == other["meta"][k]
+                   for k in ("its", "phases", "unassigned", "final_eps"))
+
+
+def test_greedy_matching_on_cuda_matches_cpu(dev):
+    """The device seed of the HK check on the card equals the CPU run bit
+    for bit (matchings and rounds), and the seeded HK size the host's."""
+    from sslap_tpu_torch import feasibility as PF
+    from sslap_tpu_torch import feasibility_device as PFD
+    rng = np.random.default_rng(8)
+    for n, m, k in ((5000, 5200, 3), (20_000, 20_000, 2), (7, 9, 2)):
+        rows = np.repeat(np.arange(n), k)
+        key = np.unique(rows * m + rng.integers(0, m, n * k))
+        prob = P.from_coo(np.stack([key // m, key % m], 1),
+                          rng.integers(1, 9, len(key)), shape=(n, m))
+        got = PFD.greedy_matching(prob, device=dev)
+        r_gpu = PFD.greedy_matching_packed.rounds
+        want = PFD.greedy_matching(prob, device="cpu")
+        assert r_gpu == PFD.greedy_matching_packed.rounds
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert PF.hopcroft_karp(prob, device_seed=True, device=dev)[2] == \
+            PF.hopcroft_karp(prob)[2]

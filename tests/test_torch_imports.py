@@ -1,7 +1,8 @@
-"""The port stands alone: importing ``sslap_tpu_torch`` (the batched
-modules included) and everything ``chip_smoke.py`` imports, then solving a
-small instance and a small batch on the CPU through the native host
-runtime, loads no jax and no file of the JAX
+"""The port stands alone: importing ``sslap_tpu_torch`` (the batched,
+feasibility-seed and parallel modules included) and everything
+``chip_smoke.py`` imports, then solving a small instance, a small batch
+and a sharded instance on the CPU through the native host runtime, with
+the device seed of the Hopcroft-Karp check, loads no jax and no file of the JAX
 package (``sslap_tpu/``), and the port's native library is its own build
 under ``sslap_tpu_torch/_build/native/``.  Checked in a fresh interpreter
 (this test process has jax loaded by the test harness).
@@ -22,7 +23,8 @@ import chip_smoke  # noqa: F401  (its imports)
 import sslap_tpu_torch as P
 import sslap_tpu_torch.batch as PB
 import sslap_tpu_torch.dense_batch  # noqa: F401
-from sslap_tpu_torch import _native
+import torch
+from sslap_tpu_torch import _native, feasibility, parallel
 rng = np.random.default_rng(0)
 n, k = 300, 6
 rr = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
@@ -34,6 +36,11 @@ res = P.AuctionSolver(loc=loc, val=val, shape=(n, n), mode="hybrid",
                       device="cpu").solve()
 batch = PB.stack_problems([P.from_coo(loc, val, shape=(n, n))] * 2)
 _, metas = PB.auction_solve_batched(batch, mode="hybrid", device="cpu")
+sharded = parallel.auction_solve_sharded(
+    loc=loc, val=val, shape=(n, n), max_iter=50,
+    mesh=parallel.make_mesh([torch.device("cpu")] * 2))
+seeded = feasibility.is_feasible(P.from_coo(loc, val, shape=(n, n)),
+                                 device_seed=True, device="cpu")
 print(json.dumps({
     "modules": {name: getattr(mod, "__file__", None)
                 for name, mod in list(sys.modules.items())},
@@ -41,7 +48,8 @@ print(json.dumps({
     "native": _native.native_available(),
     "native_lib": getattr(_native._lib, "_name", None),
     "soln_found": res["meta"]["soln_found"]
-    and all(mt["soln_found"] for mt in metas),
+    and all(mt["soln_found"] for mt in metas) and seeded
+    and sharded["meta"]["n_shards"] == 2,
 }))
 """
 
@@ -65,6 +73,8 @@ def test_port_loads_nothing_of_the_jax_package():
     assert "sslap_tpu_torch.batch" in names
     assert "sslap_tpu_torch.dense_batch" in names
     assert "sslap_tpu_torch.gs_host" in names
+    assert "sslap_tpu_torch.feasibility_device" in names
+    assert "sslap_tpu_torch.parallel.sharded" in names
     if got["native"]:
         lib = Path(got["native_lib"]).resolve()
         assert lib.parent == ROOT / "sslap_tpu_torch" / "_build" / "native"

@@ -173,3 +173,54 @@ def test_hopcroft_karp_matches_reference(seed, use_native):
                     PF.hopcroft_karp(p, use_native=use_native,
                                      init_match=init)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("require_nonnegative", [True, False])
+def test_from_dense_takes_require_nonnegative(require_nonnegative):
+    """The reference's keyword, accepted and unused (the >= 0 mask already
+    forbids negatives), through from_dense and batch_from_dense."""
+    from sslap_tpu import batch as RB
+    from sslap_tpu_torch import batch as PB
+    rng = np.random.default_rng(5)
+    mats = rng.integers(-40, 100, (3, 5, 6))      # negatives: forbidden
+    kw = dict(require_nonnegative=require_nonnegative)
+    ref = RI.from_dense(mats[0], **kw)
+    got = PI.from_dense(mats[0], **kw)
+    _assert_same(ref, got)
+    _assert_same(PI.from_dense(mats[0]), got)
+    assert got.n == 5 and got.nnz == int((mats[0] >= 0).sum())
+    _assert_same(RB.batch_from_dense(mats, **kw),
+                 PB.batch_from_dense(mats, **kw))
+
+
+@pytest.mark.parametrize("kind", ["int", "float32", "float64"])
+def test_to_coo_and_to_dense_match_reference(kind):
+    rng = np.random.default_rng(6)
+    loc, val, _ = random_sparse_instance(rng, 30, 41, 0.2,
+                                         integer=kind == "int")
+    val = val.astype({"int": val.dtype, "float32": np.float32,
+                      "float64": np.float64}[kind])
+    r = RI.from_coo(loc, val, shape=(30, 41), pad_to=12)
+    p = PI.from_reference(r)
+    for a, b in zip(PI.to_coo(p), RI.to_coo(r)):
+        assert a.dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, b)
+    for fv in (-1.0, -7, np.nan):
+        a, b = PI.to_dense(p, fv), RI.to_dense(r, fv)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    # round trips: COO and dense back to the same ELL arrays
+    _assert_same(r, PI.from_coo(*PI.to_coo(p), shape=(30, 41), pad_to=12))
+    dense = PI.to_dense(p)
+    _assert_same(RI.from_dense(dense, dtype=r.vals.dtype),
+                 PI.from_dense(dense, dtype=p.vals.dtype))
+    np.testing.assert_array_equal(PI.to_dense(PI.from_dense(dense,
+                                  dtype=p.vals.dtype)), dense)
+
+
+def test_package_exports_match_reference():
+    import sslap_tpu
+    import sslap_tpu_torch
+    assert sslap_tpu_torch.__version__ == sslap_tpu.__version__ == "0.1.0"
+    assert sslap_tpu_torch.to_dense is PI.to_dense
+    assert set(sslap_tpu.__all__) <= set(sslap_tpu_torch.__all__)
