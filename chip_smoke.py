@@ -4,6 +4,7 @@
     python3 chip_smoke.py --k12 LABEL   # K1 and K2's timings alone
     python3 chip_smoke.py --k3 LABEL    # K3's timings on the headline tail
     python3 chip_smoke.py --probes LABEL  # the probe timings alone
+    python3 chip_smoke.py --commit-keys LABEL  # the fused commit alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -143,10 +144,11 @@ of which raises on failure (so the exit code is non-zero):
                  [cuda] * 4 (four shards on the one card), capped at
                  SHARD_ROUNDS rounds, each equal to the port's solve_ell
                  on the card under the same cap (sigma, prices bits,
-                 rounds, phases), K1 and K2's resolve launch once a shard
-                 a round and K2's commit launch never; ms a round, and a
-                 torch.profiler window over SHARD_PROFILE_ROUNDS rounds on
-                 four shards (K1, the resolve launch, torch ops, idle);
+                 rounds, phases), K1, K2's resolve launch and the fused
+                 key commit once a shard a round and K2's commit launch
+                 never; ms a round, and a torch.profiler window over
+                 SHARD_PROFILE_ROUNDS rounds on four shards (K1, the
+                 resolve launch, the fused commit, torch ops, idle);
                  the resolve launch alone on the headline's first round
                  against its plain version (exact), timed as in phase 3
                  beside its byte bound and scatter_reduce_ amax;
@@ -161,6 +163,35 @@ of which raises on failure (so the exit code is non-zero):
                  auction_solve_batched(mode="device")
                  over a "batch" mesh of [cuda] * 2 at B = 4, n = 256,
                  equal to the call without a mesh
+ 12. overlapped -- the overlapped row-sharded solve, the fused key commit
+                 (ops.commit.commit_keys), the round breakdown and a
+                 process-spanning mesh: the fused commit against its plain
+                 version on the 1M headline's first two sharded rounds
+                 (float32 and int32 values, unguarded, guarded, and
+                 guarded on stale prices; one shard and shard 1 of 4),
+                 exact, timed as in phase 3 beside its byte bound;
+                 solve_ell_overlapped on the 1M headline on [cuda] and
+                 [cuda] * 4 capped at SHARD_ROUNDS, equal bit for bit
+                 (sigma, prices, rounds, phases), K1, the resolve launch
+                 and the fused commit once a shard a round, ms a round
+                 and a profiler window over SHARD_PROFILE_ROUNDS rounds on
+                 four shards; measure_round_breakdown on the headline, 1
+                 and 4 shards, overlap off and on; AuctionSolver(
+                 mode="overlapped", device="cuda") on phase 11's 5k
+                 float32 instance, complete (|obj - obj_cpu| <= n *
+                 eps_min against mode="cpu"), bit for bit against the
+                 same solve on a CPU mesh of 4 (a second child,
+                 --overlapped-cpu, started beside phase 11's); and the
+                 overlapped solve in two processes on the one card
+                 (parallel/multiproc.py over Gloo, a shard each): the 1M
+                 headline capped at MP_ROUNDS (multiproc --problem;
+                 each round all-reduces the [m] key table, 8 MB), equal
+                 bit for bit to the one-process [cuda] * 2 solve run
+                 before and after it, its solve time a round against
+                 theirs; and AuctionSolver's path end to end at n = MP_N,
+                 equal bit for bit to the one-process solve and to
+                 scipy's objective.  Phase 12's headline parts run right
+                 after phase 11's, before the children start
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
@@ -199,8 +230,12 @@ limiter readings as ms_local_gathers (K1 at 1M) / ms_no_bidder.  K1's and
 K2's entries also carry sharded_launches, their launches on phase 11's
 sharded runs (K2: the resolve launch alone), K1's the profiler split
 (sharded_profile) and K2's the resolve launch's own numbers
-(sharded_resolve: ms, ms_device, plain_ms, bound, library_ms).  The last
-line is
+(sharded_resolve: ms, ms_device, plain_ms, bound, library_ms), and their
+launches on phase 12's overlapped runs (overlapped_launches).  The fused
+key commit's entry (commit_keys) counts its launches on phase 12's 1M
+overlapped runs, with phase 11's sharded ones beside, and carries the
+overlapped profiler split, round times, breakdowns and the two-process
+run.  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 --k12 LABEL runs only the K1 and K2 measurements: phase 3's at C = 1M
@@ -226,7 +261,11 @@ rows, closed form and conflict instances) and prints them as one line
 ladder_inputs has no first= skips the conflict instances).
 
 --sharded-cpu PATH is phase 11's child: its solves on CPU meshes, saved to
-PATH (npz).
+PATH (npz); --overlapped-cpu PATH is phase 12's.
+
+--commit-keys LABEL runs only phase 12's fused commit check and timings
+on the headline's first two sharded rounds and prints them as one line
+"COMMIT_KEYS LABEL {...}"; A/B between trees as --k12.
 
 --k3 LABEL runs only phase 6's K3 measurements (no _scan stubs), plus the
 whole tail at each number of bid warps in K3_SWEEP (through the module
@@ -265,7 +304,9 @@ from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched, \
     dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
     ladder_phase_plain
 from sslap_tpu_torch.ops import gs_kernel as GK
-from sslap_tpu_torch.ops.commit import resolve
+from sslap_tpu_torch.ops.commit import commit_keys, commit_keys_plain, \
+    resolve
+from sslap_tpu_torch.parallel import multiproc as MP
 from sslap_tpu_torch.ops import ladder as L
 from sslap_tpu_torch.ops import probe_gs as PG
 
@@ -288,6 +329,13 @@ KERNELS = {
                "source": "sslap_tpu_torch/ops/csrc/ladder.cu",
                "replaces": "sslap_tpu/ops/bid.py:59 + "
                            "sslap_tpu/ops/commit.py:26"},
+    # no TPU kernel behind the fused key commit either: it replaces the
+    # XLA jnp commit of the sharded and overlapped rounds
+    "commit_keys": {"route": "cuda",
+                    "source": "sslap_tpu_torch/ops/csrc/commit.cu",
+                    "replaces": "sslap_tpu/parallel/overlap.py:95 + "
+                                "sslap_tpu/auction.py:162 (XLA, no TPU "
+                                "kernel)"},
     # no TPU kernel behind DK: it replaces the XLA-compiled dense bid
     "dense_bid": {"route": "cuda",
                   "source": "sslap_tpu_torch/ops/csrc/dense_bid.cu",
@@ -2614,32 +2662,45 @@ def _sharded_inputs(prob):
                 bigp=float(tv.max() - tv.min()) + 1.0)
 
 
-def _sharded_run(prob, inp, shards, max_iter):
-    """sharded_solve_ell over [cuda] * shards; returns (result, seconds,
-    K1 launches, resolve launches, K2 commit launches)."""
+def _sharded_run(prob, inp, shards, max_iter, overlapped=False):
+    """sharded_solve_ell (or solve_ell_overlapped) over [cuda] * shards,
+    the launch counts zeroed just before; returns (result, seconds, K1
+    launches, resolve launches, fused commit launches, K2 commit
+    launches)."""
     dev = torch.device(DEVICE)
+    mesh = PP.make_mesh([dev] * shards)
+    p0 = torch.zeros(prob.m, dtype=torch.float32)
     bid_topk.launches = resolve.launches = commit.launches = 0
+    commit_keys.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = PP.sharded_solve_ell(
-        prob, inp["vals_t"], PP.make_mesh([dev] * shards),
-        torch.zeros(prob.m, dtype=torch.float32), inp["e0"], inp["e_min"],
-        inp["theta"], max_iter, inp["bigp"], prob.n,
-        theta_tail=inp["theta_tail"])
+    if overlapped:
+        res = PP.solve_ell_overlapped(
+            prob.cols, inp["vals_t"], prob.valid, prob.nvalid, mesh, p0,
+            inp["e0"], inp["e_min"], inp["theta"], max_iter, inp["bigp"],
+            theta_tail=inp["theta_tail"])
+    else:
+        res = PP.sharded_solve_ell(
+            prob, inp["vals_t"], mesh, p0, inp["e0"], inp["e_min"],
+            inp["theta"], max_iter, inp["bigp"], prob.n,
+            theta_tail=inp["theta_tail"])
     torch.cuda.synchronize()
     return (res, time.perf_counter() - t0, bid_topk.launches,
-            resolve.launches, commit.launches)
+            resolve.launches, commit_keys.launches, commit.launches)
 
 
-def _profile_sharded(prob, inp, shards):
-    """torch.profiler over SHARD_PROFILE_ROUNDS sharded rounds: K1's, the
-    resolve launch's and the torch ops' device time, and the idle share."""
+def _profile_sharded(prob, inp, shards, overlapped=False):
+    """torch.profiler over SHARD_PROFILE_ROUNDS sharded (or overlapped)
+    rounds: K1's, the resolve launch's, the fused commit's and the torch
+    ops' device time, and the idle share."""
     from torch.profiler import ProfilerActivity, profile
+    tag = "[12 overlapped]" if overlapped else "[11 sharded]"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = _sharded_run(prob, inp, shards, SHARD_PROFILE_ROUNDS)[0]
+        res = _sharded_run(prob, inp, shards, SHARD_PROFILE_ROUNDS,
+                           overlapped)[0]
         window = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
 
@@ -2649,14 +2710,17 @@ def _profile_sharded(prob, inp, shards):
 
     k1 = device_ms(lambda k: "bid_kernel<" in k and "dense" not in k)
     k2 = device_ms(lambda k: "resolve_kernel<" in k)
+    kc = device_ms(lambda k: "commit_keys_kernel<" in k)
     busy = device_ms(lambda k: True)
     out = dict(shards=shards, rounds=res.rounds, window_ms=window,
                round_ms=window / res.rounds, k1_ms=k1, k2_resolve_ms=k2,
-               torch_ops_ms=busy - k1 - k2, idle_share=1 - busy / window)
-    log(f"[11 sharded] profiler, {shards} shards, {res.rounds} rounds: "
+               commit_keys_ms=kc, torch_ops_ms=busy - k1 - k2 - kc,
+               idle_share=1 - busy / window)
+    log(f"{tag} profiler, {shards} shards, {res.rounds} rounds: "
         f"window {window:.1f} ms ({window / res.rounds:.3f} ms a round); "
-        f"device K1 {k1:.2f} ms, K2 resolve {k2:.2f} ms, torch ops "
-        f"{busy - k1 - k2:.2f} ms; idle share {1 - busy / window:.3f}")
+        f"device K1 {k1:.2f} ms, K2 resolve {k2:.2f} ms, fused commit "
+        f"{kc:.2f} ms, torch ops {busy - k1 - k2 - kc:.2f} ms; idle share "
+        f"{1 - busy / window:.3f}")
     return out
 
 
@@ -2682,22 +2746,27 @@ def _sharded_headline(prob):
         f"(cap {SHARD_ROUNDS}): {ref_s:.3f} s, {ref.rounds} rounds "
         f"({1e3 * ref_s / ref.rounds:.3f} ms a round), {ref.phases} phases, "
         f"{ref.unassigned} unassigned; K2 launches {commit.launches}")
-    launches = {}
+    launches, round_ms = {}, {}
     for shards in (1, 4):
-        res, secs, k1, k2, k2_commit = _sharded_run(prob, inp, shards,
-                                                    SHARD_ROUNDS)
+        res, secs, k1, k2, kc, k2_commit = _sharded_run(prob, inp, shards,
+                                                        SHARD_ROUNDS)
         same = (torch.equal(res.sigma, ref.sigma)
                 and _same_bits(res.prices, ref.prices)
                 and (res.rounds, res.phases, res.unassigned)
                 == (ref.rounds, ref.phases, ref.unassigned))
+        round_ms[shards] = 1e3 * secs / res.rounds
         log(f"[11 sharded] headline on {shards} shard(s): {secs:.3f} s "
-            f"({1e3 * secs / res.rounds:.3f} ms a round); == solve_ell "
-            f"(sigma, prices bits, rounds, phases): {same}; launches K1 "
-            f"{k1}, K2 resolve {k2}, K2 commit {k2_commit}")
-        if not same or not k1 == k2 == shards * res.rounds or k2_commit:
+            f"({round_ms[shards]:.3f} ms a round); == solve_ell (sigma, "
+            f"prices bits, rounds, phases): {same}; launches K1 {k1}, K2 "
+            f"resolve {k2}, fused commit {kc}, K2 commit {k2_commit}")
+        if not same or not k1 == k2 == kc == shards * res.rounds or \
+                k2_commit:
             raise AssertionError(f"sharded headline on {shards} shards")
-        launches[f"headline_{shards}"] = dict(bid_topk=k1, commit=k2)
+        launches[f"headline_{shards}"] = dict(bid_topk=k1, commit=k2,
+                                              commit_keys=kc)
     prof = _profile_sharded(prob, inp, 4)
+    prof.update(solve_ell_round_ms=1e3 * ref_s / ref.rounds,
+                round_ms_1=round_ms[1], round_ms_4=round_ms[4])
     return launches, prof, _resolve_timing(prob, inp)
 
 
@@ -2768,23 +2837,26 @@ def _meta_keys(meta):
                                  "obj", "soln_found")}
 
 
-def sharded_cpu(path: str) -> None:
+def sharded_cpu(path: str, overlapped: bool = False) -> None:
     """--sharded-cpu PATH: phase 11's solves on CPU meshes of 4 and 2 (the
-    kernels' plain versions, resolve_bids and the pmax/pmin combine),
+    kernels' plain versions, resolve_bids and the pmax/pmin combine);
+    --overlapped-cpu PATH: phase 12's overlapped solve on a CPU mesh of 4;
     saved to PATH (npz) for the card run to compare with."""
     out = {}
-    for name, ((loc, val, shape), kw, shards) in _sharded_cases().items():
+    cases = _overlapped_cases() if overlapped else _sharded_cases()
+    solve = (PP.auction_solve_overlapped if overlapped
+             else PP.auction_solve_sharded)
+    for name, ((loc, val, shape), kw, shards) in cases.items():
         mesh = PP.make_mesh([torch.device("cpu")] * shards)
         t0 = time.perf_counter()
-        res = PP.auction_solve_sharded(loc=loc, val=val, shape=shape,
-                                       mesh=mesh, **kw)
+        res = solve(loc=loc, val=val, shape=shape, mesh=mesh, **kw)
         secs = time.perf_counter() - t0
         out[name + "_sol"] = res["sol"]
         out[name + "_prices"] = res["prices"]
         out[name + "_meta"] = np.array(json.dumps(
             dict(_meta_keys(res["meta"]), seconds=secs)))
-        log(f"[11 sharded cpu] {name} on {shards} CPU shards: {secs:.1f} s, "
-            f"its {res['meta']['its']}")
+        log(f"[{12 if overlapped else 11} cpu] {name} on {shards} CPU "
+            f"shards: {secs:.1f} s, its {res['meta']['its']}")
     np.savez(path, **out)
 
 
@@ -2797,7 +2869,7 @@ def _sharded_parity():
     dev = torch.device(DEVICE)
     results, launches = {}, {}
     for name, ((loc, val, shape), kw, shards) in _sharded_cases().items():
-        bid_topk.launches = resolve.launches = 0
+        bid_topk.launches = resolve.launches = commit_keys.launches = 0
         t0 = time.perf_counter()
         if "partition" in kw:
             res = PP.auction_solve_sharded(
@@ -2813,13 +2885,14 @@ def _sharded_parity():
             f"shard(s)) {secs:.3f} s, its {mt['its']} ({round_ms:.3f} ms a "
             f"round), phases {mt['phases']}, soln_found {mt['soln_found']}; "
             f"launches K1 {bid_topk.launches}, K2 resolve "
-            f"{resolve.launches}")
+            f"{resolve.launches}, fused commit {commit_keys.launches}")
         if not bid_topk.launches == resolve.launches == \
-                mt["its"] * mt["n_shards"]:
+                commit_keys.launches == mt["its"] * mt["n_shards"]:
             raise AssertionError(f"sharded {name}: launches")
         results[name] = res
         launches[name] = dict(bid_topk=bid_topk.launches,
-                              commit=resolve.launches)
+                              commit=resolve.launches,
+                              commit_keys=commit_keys.launches)
         if name == "square_f32":
             cpu = AuctionSolver(loc=loc, val=val, shape=shape, mode="cpu",
                                 cardinality_check=False).solve()["meta"]
@@ -2832,7 +2905,7 @@ def _sharded_parity():
     return results, launches
 
 
-def _same_as_cpu_mesh(results, cpu_out) -> None:
+def _same_as_cpu_mesh(results, cpu_out, tag="[11 sharded]") -> None:
     """The card's solves against the CPU meshes, bit for bit (sol,
     prices, its, phases, unassigned, final_eps, obj)."""
     for name, res in results.items():
@@ -2842,10 +2915,10 @@ def _same_as_cpu_mesh(results, cpu_out) -> None:
                 and np.array_equal(res["prices"].view(np.int32),
                                    cpu_out[name + "_prices"].view(np.int32))
                 and mt == {k: cpu_meta[k] for k in mt})
-        log(f"[11 sharded] {name}: CUDA == CPU mesh "
+        log(f"{tag} {name}: CUDA == CPU mesh "
             f"({cpu_meta['seconds']:.1f} s) bit for bit: {same}")
         if not same:
-            raise AssertionError(f"sharded {name}: CUDA != CPU mesh")
+            raise AssertionError(f"{tag} {name}: CUDA != CPU mesh")
 
 
 def _batched_mesh(dev):
@@ -2871,18 +2944,18 @@ def _batched_mesh(dev):
 
 
 @contextlib.contextmanager
-def sharded_cpu_child():
-    """The CPU meshes of phase 11 in a child process (``--sharded-cpu``)
-    on one host core (its shard threads take turns), beside the card's
-    solves; yields (process, output path) and kills it if it still runs
-    at exit."""
+def cpu_child(flag: str):
+    """The CPU meshes of phase 11 (``--sharded-cpu``) or 12
+    (``--overlapped-cpu``) in a child process on one torch thread (its
+    shard threads take turns), beside the card's solves; yields (process,
+    output path) and kills it if it still runs at exit."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "sharded_cpu.npz")
+        path = os.path.join(tmp, "cpu_mesh.npz")
         child = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sharded-cpu",
-             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [sys.executable, os.path.abspath(__file__), flag, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
         try:
             yield child, path
         finally:
@@ -2891,29 +2964,394 @@ def sharded_cpu_child():
                 child.wait()
 
 
-def phase_sharded(prob):
-    """Phase 11.  The headline's timings first, then the CPU meshes' child
-    starts beside the card's other solves.  Returns the kernels-line
-    numbers: launches, the profiler split and the resolve launch's
-    timing."""
+def _child_result(child, path, flag):
+    """Wait for a CPU-mesh child; returns its npz, loaded."""
+    out, _ = child.communicate(timeout=900)
+    for line in out.splitlines():
+        log(line)
+    if child.returncode != 0:
+        raise RuntimeError(f"{flag} failed ({child.returncode})")
+    with np.load(path) as z:
+        return dict(z)
+
+
+def phases_sharded(prob):
+    """Phases 11 and 12.  Their headline timings first (phase 11's, then
+    phase 12's fused commit, overlapped solve and round breakdowns), then
+    the CPU meshes' children start beside the card's other solves.
+    Returns the kernels-line numbers: phase 11's launches, profiler split
+    and resolve launch timing, and phase 12's dict."""
     t_phase = time.perf_counter()
     dev = torch.device(DEVICE)
     launches, prof, res_t = _sharded_headline(prob)
-    with sharded_cpu_child() as (child, path):
+    ov = _overlapped_headline(prob)
+    with cpu_child("--sharded-cpu") as (child, path), \
+            cpu_child("--overlapped-cpu") as (ochild, opath):
         results, solver_launches = _sharded_parity()
         launches.update(solver_launches)
         _batched_mesh(dev)
+        ov_results, ov["solver_launches"] = _overlapped_parity()
+        ov["two_process"] = _two_process(dev)
         t0 = time.perf_counter()
-        out, _ = child.communicate(timeout=900)
-        for line in out.splitlines():
-            log(line)
-        if child.returncode != 0:
-            raise RuntimeError(f"--sharded-cpu failed ({child.returncode})")
-        with np.load(path) as cpu_out:
-            _same_as_cpu_mesh(results, cpu_out)
-    log(f"[11 sharded] phase 11 in {time.perf_counter() - t_phase:.1f} s "
-        f"({time.perf_counter() - t0:.1f} s waiting for the CPU meshes)")
-    return launches, prof, res_t
+        _same_as_cpu_mesh(results, _child_result(child, path,
+                                                 "--sharded-cpu"))
+        t1 = time.perf_counter()
+        _same_as_cpu_mesh(ov_results, _child_result(
+            ochild, opath, "--overlapped-cpu"), tag="[12 overlapped]")
+    log(f"[12 overlapped] phases 11-12 in {time.perf_counter() - t_phase:.1f}"
+        f" s ({t1 - t0:.1f} s waiting for phase 11's CPU meshes, "
+        f"{time.perf_counter() - t1:.1f} s for phase 12's)")
+    return launches, prof, res_t, ov
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the overlapped row-sharded solve, the fused key commit, the
+# round breakdown and a two-process run on the one card
+# ---------------------------------------------------------------------------
+
+
+MP_N = 1024                   # phase 12: the two-process run's instance
+MP_ROUNDS = 500               # phase 12: the two-process headline's cap
+
+
+def _commit_keys_rounds(prob, inp, dtype):
+    """The fused commit's inputs on the headline: the combined key tables
+    of its first two sharded rounds on one card, each with the state it
+    commits onto (round 1: every row bids on zero prices; round 2: the
+    rows round 1 left unassigned, with evictions).  int32: the headline's
+    transformed values rounded, eps 1.  Returns [(keys, prices, owner,
+    sigma)] * 2 and eps."""
+    dev = torch.device(DEVICE)
+    n, m = prob.n, prob.m
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    if dtype == np.float32:
+        vals, eps, bigp = inp["vals_t"], np.float32(inp["e0"]), \
+            np.float32(inp["bigp"])
+    else:
+        vals = np.rint(inp["vals_t"]).astype(np.int32)
+        tv = vals[prob.valid]
+        eps, bigp = np.int32(1), np.int32(tv.max() - tv.min() + 1)
+    cols, nvalid = t(prob.cols), t(prob.nvalid.astype(np.int32))
+    vals_m = A.mask_vals(t(vals), t(prob.valid))
+    prices = torch.zeros(m, dtype=vals_m.dtype, device=dev)
+    owner = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    sigma = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    out = []
+    for _ in range(2):
+        ids = torch.where((sigma < 0) & (nvalid > 0), rows, n)
+        tgt, bid = bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner,
+                            eps, bigp)
+        keys = resolve(ids, tgt, bid,
+                       torch.zeros(m, dtype=torch.int64, device=dev))
+        out.append((keys.clone(), prices.clone(), owner.clone(),
+                     sigma.clone()))
+        commit_keys(keys, prices, owner, sigma)
+    torch.cuda.synchronize()
+    return out, eps
+
+
+def _commit_keys_state(keys, prices, owner, sigma):
+    """A fresh copy of the fused commit's arguments per call."""
+    return lambda: [keys.clone(), prices.clone(), owner.clone(),
+                    sigma.clone()]
+
+
+def _commit_keys_profiled_ms(state, eps, reps):
+    """The fused commit kernel's device time per launch, ms, from
+    torch.profiler over reps calls, each right after its arguments were
+    copied (in L2, as the round leaves them)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            commit_keys(*state(), eps=eps)
+        torch.cuda.synchronize()
+    ev = [x for x in prof.key_averages() if "commit_keys_kernel<" in x.key]
+    return 1e-3 * sum(x.self_device_time_total for x in ev) / max(
+        sum(x.count for x in ev), 1)
+
+
+def _commit_keys_bytes(keys, prices, owner, n_local, off, eps):
+    """The bytes the fused commit must move on these inputs: the keys read,
+    and per column with a bid its key zeroed and (guarded: eps given) its
+    price read; per accepted bid the price written, the owner read and
+    written, and the sigma writes of the evicted and installed rows that
+    are the shard's."""
+    from sslap_tpu_torch.ops.commit import decode_keys
+    best, winner = decode_keys(keys, prices.dtype)
+    has = keys != 0
+    acc = has & (best > A.half_neg(prices.dtype) if eps is None
+                 else best >= prices + eps)
+    local = lambda r: (r >= off) & (r < off + n_local)  # noqa: E731
+    nk, na = int(has.sum()), int(acc.sum())
+    ev = int((acc & (owner >= 0) & local(owner)).sum())
+    asg = int((acc & local(winner)).sum())
+    return (8 * keys.shape[0] + 8 * nk + (0 if eps is None else 4 * nk)
+            + 12 * na + 4 * (ev + asg))
+
+
+def _commit_keys_check(prob, inp, reps=20):
+    """The fused commit (ops.commit.commit_keys) against its plain version
+    on the headline's first two sharded rounds, exact (prices bits,
+    owner, sigma, the keys zeroed): float32 and int32, unguarded and
+    guarded (round 2 also on prices raised by 3 eps on a random half of
+    the columns: stale bids, some rejected), on one shard and as shard 1
+    of 4.  Times the overlapped path's first commit (round 1's keys,
+    guarded, one shard, float32) as in phase 3, beside its byte bound,
+    and round 2's back to back."""
+    n = prob.n
+    rng = np.random.default_rng(12)
+    timed = {}
+    for dtype in (np.float32, np.int32):
+        rounds, eps = _commit_keys_rounds(prob, inp, dtype)
+        for r, (keys, prices, owner, sigma) in enumerate(rounds, 1):
+            cases = [("unguarded", prices, None), ("guarded", prices, eps)]
+            if r == 2:
+                bump = torch.from_numpy(rng.random(prob.m) < 0.5).to(
+                    prices.device)
+                cases.append(("stale", torch.where(
+                    bump, prices + 3 * eps, prices), eps))
+            for name, p, e in cases:
+                for shards, part in ((1, 0), (4, 1)):
+                    n_local = n // shards
+                    off = part * n_local
+                    state = _commit_keys_state(keys, p, owner,
+                                               sigma[off:off + n_local])
+                    got, want = state(), state()
+                    commit_keys(*got, row_offset=off, eps=e)
+                    commit_keys_plain(*want, row_offset=off, eps=e)
+                    torch.cuda.synchronize()
+                    if not all(_same_bits(a, b) for a, b in zip(got, want)) \
+                            or bool(got[0].any()):
+                        raise AssertionError(
+                            f"fused commit != plain: {dtype.__name__} round "
+                            f"{r} {name} shard {part} of {shards}")
+                    if dtype == np.float32 and shards == 1 and \
+                            (r, name) in ((1, "guarded"), (2, "unguarded")):
+                        timed[r] = (state, e, _commit_keys_bytes(
+                            keys, p, owner, n_local, off, e))
+        log(f"[12 overlapped] fused commit == plain on the headline's "
+            f"rounds 1-2, {dtype.__name__}, unguarded / guarded / stale, "
+            f"1 shard and shard 1 of 4: exact")
+    state, e, nbytes = timed[1]
+    run = lambda k, p, o, s: commit_keys(k, p, o, s, eps=e)  # noqa: E731
+    out = dict(
+        max_abs_err=0.0, ms=_median_ms(state, run, reps),
+        ms_device=_device_ms(state, run, reps),
+        ms_profiler=_commit_keys_profiled_ms(state, e, reps),
+        plain_ms=_median_ms(state, lambda k, p, o, s: commit_keys_plain(
+            k, p, o, s, eps=e), reps),
+        library_ms=None, **_bound(nbytes))
+    state2, e2, nbytes2 = timed[2]
+    out["round2_ms_device"] = _device_ms(
+        state2, lambda k, p, o, s: commit_keys(k, p, o, s, eps=e2), reps)
+    out["round2_ms_profiler"] = _commit_keys_profiled_ms(state2, e2, reps)
+    out["round2_bound_ms"] = _bound(nbytes2)["bound_ms"]
+    log(f"[12 overlapped] fused commit, headline round 1 keys, guarded: "
+        f"{out['ms']:.4f} ms (back to back, each on its own cold copy "
+        f"{out['ms_device']:.4f}; profiler, each after its copy, as on "
+        f"the round's path, {out['ms_profiler']:.4f}), plain "
+        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_bytes']} bytes; "
+        f"{out['bound_ms'] / out['ms_device']:.1%} back to back); round 2 "
+        f"unguarded back to back {out['round2_ms_device']:.4f} ms, "
+        f"profiler {out['round2_ms_profiler']:.4f} ms, bound "
+        f"{out['round2_bound_ms']:.4f} ms")
+    return out
+
+
+def _overlapped_headline(prob):
+    """Phase 12's parts on the 1M headline: the fused commit's check and
+    timing, solve_ell_overlapped on [cuda] and [cuda] * 4 capped at
+    SHARD_ROUNDS rounds (bit-identical: sigma, prices bits, rounds,
+    phases; K1, the resolve launch and the fused commit once a shard a
+    round, K2's commit launch never), the profiler over
+    SHARD_PROFILE_ROUNDS rounds on four shards, and measure_round_breakdown
+    on 1 and 4 shards, overlap off and on."""
+    inp = _sharded_inputs(prob)
+    out = {"commit_keys": _commit_keys_check(prob, inp), "launches": {}}
+    runs = {}
+    for shards in (1, 4):
+        res, secs, k1, k2, kc, k2_commit = _sharded_run(
+            prob, inp, shards, SHARD_ROUNDS, overlapped=True)
+        runs[shards] = res
+        out[f"round_ms_{shards}"] = 1e3 * secs / res.rounds
+        log(f"[12 overlapped] headline on {shards} shard(s): {secs:.3f} s, "
+            f"{res.rounds} rounds ({out[f'round_ms_{shards}']:.3f} ms a "
+            f"round), {res.phases} phases, {res.unassigned} unassigned; "
+            f"launches K1 {k1}, K2 resolve {k2}, fused commit {kc}, K2 "
+            f"commit {k2_commit}")
+        if not k1 == k2 == kc == shards * res.rounds or k2_commit:
+            raise AssertionError(f"overlapped headline on {shards} shards: "
+                                 f"launches")
+        out["launches"][f"headline_{shards}"] = dict(
+            bid_topk=k1, commit=k2, commit_keys=kc)
+    a, b = runs[1], runs[4]
+    same = (torch.equal(a.sigma, b.sigma) and _same_bits(a.prices, b.prices)
+            and (a.rounds, a.phases, a.unassigned)
+            == (b.rounds, b.phases, b.unassigned))
+    log(f"[12 overlapped] headline, 1 shard == 4 shards (sigma, prices "
+        f"bits, rounds, phases): {same}")
+    if not same:
+        raise AssertionError("overlapped headline: 1 shard != 4 shards")
+    out["profile"] = _profile_sharded(prob, inp, 4, overlapped=True)
+    out["two_process_headline"] = _two_process_headline(prob, inp)
+    out["breakdown"] = {}
+    dev = torch.device(DEVICE)
+    for shards in (1, 4):
+        for overlap in (False, True):
+            t0 = time.perf_counter()
+            br = PP.measure_round_breakdown(
+                prob, PP.make_mesh([dev] * shards), overlap=overlap)
+            key = f"{shards}_{'overlap' if overlap else 'plain'}"
+            out["breakdown"][key] = br
+            log(f"[12 overlapped] measure_round_breakdown, {shards} "
+                f"shard(s), overlap={overlap} ({time.perf_counter() - t0:.1f}"
+                f" s): " + ", ".join(f"{k} {v!r}" for k, v in br.items()))
+            if not all(np.isfinite(br[k]) and br[k] >= 0 for k in (
+                    "round_s", "compute_s", "comm_s", "comm_fraction")) \
+                    or br["n_shards"] != shards:
+                raise AssertionError("measure_round_breakdown")
+    return out
+
+
+def _overlapped_cases():
+    """Phase 12's complete solve against the CPU: the SHARD_N square
+    float32 instance (phase 11's), overlapped, on a CPU mesh of 4."""
+    return {"overlapped_f32": _sharded_cases()["square_f32"]}
+
+
+def _overlapped_parity():
+    """AuctionSolver(mode='overlapped', device='cuda') on phase 11's 5k
+    square float32 instance, complete: soln_found, |obj - obj_cpu| <= n *
+    eps_min against mode='cpu', and K1, the resolve launch and the fused
+    commit once a shard a round.  Returns (the results, the launches)."""
+    results, launches = {}, {}
+    for name, ((loc, val, shape), kw, _) in _overlapped_cases().items():
+        bid_topk.launches = resolve.launches = commit_keys.launches = 0
+        t0 = time.perf_counter()
+        res = AuctionSolver(loc=loc, val=val, shape=shape, mode="overlapped",
+                            device=DEVICE, **kw).solve()
+        secs = time.perf_counter() - t0
+        mt = res["meta"]
+        cpu = AuctionSolver(loc=loc, val=val, shape=shape, mode="cpu",
+                            cardinality_check=False).solve()["meta"]
+        gap = abs(mt["obj"] - cpu["obj"])
+        bound = shape[0] * mt["final_eps"]
+        log(f"[12 overlapped] {name} {shape}: CUDA ({mt['n_shards']} "
+            f"shard(s)) {secs:.3f} s, its {mt['its']} "
+            f"({1e3 * secs / mt['its']:.3f} ms a round), phases "
+            f"{mt['phases']}, soln_found {mt['soln_found']}; launches K1 "
+            f"{bid_topk.launches}, K2 resolve {resolve.launches}, fused "
+            f"commit {commit_keys.launches}; |obj - obj_cpu| {gap!r} <= n * "
+            f"eps_min {bound!r}: {gap <= bound}")
+        if not bid_topk.launches == resolve.launches == \
+                commit_keys.launches == mt["its"] * mt["n_shards"]:
+            raise AssertionError(f"overlapped {name}: launches")
+        if not (mt["soln_found"] and gap <= bound):
+            raise AssertionError(f"overlapped {name}: objective off")
+        results[name] = res
+        launches[name] = dict(bid_topk=bid_topk.launches,
+                              commit=resolve.launches,
+                              commit_keys=commit_keys.launches)
+    return results, launches
+
+
+def _launch_two_process(args, timeout=360):
+    """parallel/multiproc.py with two workers on the one card over Gloo
+    (NCCL refuses two ranks on one card), a shard each, worker 0's
+    solution saved; returns (report, solution, seconds with start-up)."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "two_process.npz")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "sslap_tpu_torch.parallel.multiproc",
+             "--backend", "overlapped", "--nproc", "2", "--local-devices",
+             "1", "--device", DEVICE, "--dist-backend", "gloo",
+             "--timeout", str(timeout - 60), "--out", path, *args],
+            capture_output=True, text=True, timeout=timeout, cwd=root)
+        secs = time.perf_counter() - t0
+        for line in run.stdout.splitlines()[-5:]:
+            log("  " + line)
+        if run.returncode != 0:
+            log(run.stderr[-3000:])
+            raise AssertionError(f"two-process run failed ({run.returncode})")
+        rep = json.loads([ln for ln in run.stdout.splitlines()
+                          if ln.startswith("{")][-1])
+        with np.load(path) as z:
+            return rep, dict(z), secs
+
+
+def _two_process_headline(prob, inp):
+    """The 1M headline's overlapped solve capped at MP_ROUNDS in two
+    processes on the one card (multiproc --problem), a shard each, against
+    the one-process solve on [cuda] * 2 run before and after it: sigma,
+    prices bits, rounds, phases and unassigned equal; the solve's own time
+    a round (devices synchronised around it) beside the one-process
+    runs'."""
+    import tempfile
+    ones = []
+    ones.append(_sharded_run(prob, inp, 2, MP_ROUNDS, overlapped=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "headline.npz")
+        MP.save_problem(path, prob.cols, inp["vals_t"], prob.valid,
+                        prob.nvalid, np.zeros(prob.m, np.float32), inp["e0"],
+                        inp["e_min"], inp["theta"], inp["bigp"],
+                        inp["theta_tail"])
+        rep, got, secs = _launch_two_process(
+            ["--problem", path, "--max-iter", str(MP_ROUNDS)])
+    ones.append(_sharded_run(prob, inp, 2, MP_ROUNDS, overlapped=True))
+    one = ones[0][0]
+    same = all(np.array_equal(got["sol"], r.sigma.cpu().numpy())
+               and got["prices"].tobytes() == r.prices.cpu().numpy().tobytes()
+               and (int(got["its"]), int(got["phases"]),
+                    int(got["unassigned"]))
+               == (r.rounds, r.phases, r.unassigned) for r, *_ in ones)
+    one_ms = [1e3 * o[1] / o[0].rounds for o in ones]
+    log(f"[12 overlapped] headline, two processes x 1 shard on the card "
+        f"(Gloo, {8 * prob.m} bytes of keys all-reduced a round), cap "
+        f"{MP_ROUNDS}: solve {rep['solve_s']:.3f} s, {rep['rounds']} "
+        f"rounds ({rep['ms_per_round']:.3f} ms a round; {secs:.1f} s with "
+        f"start-up); one process on [cuda] * 2 before / after: "
+        f"{ones[0][1]:.3f} / {ones[1][1]:.3f} s ({one_ms[0]:.3f} / "
+        f"{one_ms[1]:.3f} ms a round); == one process (sigma, prices bits, "
+        f"rounds, phases, unassigned): {same}")
+    if not same or one.rounds != MP_ROUNDS:
+        raise AssertionError("two-process headline != one process")
+    return dict(rounds=rep["rounds"], solve_s=rep["solve_s"],
+                ms_per_round=rep["ms_per_round"], seconds=secs,
+                one_process_s=[o[1] for o in ones],
+                one_process_ms_per_round=one_ms,
+                key_bytes_per_round=8 * prob.m)
+
+
+def _two_process(dev):
+    """AuctionSolver's overlapped path end to end in two processes on the
+    one card (``auction_solve_overlapped`` in each, n = MP_N, a shard
+    each), against the one-process solve on [cuda] * 2: sol, prices bits,
+    rounds, phases and final eps equal, and scipy's objective.  A check of
+    the path, not a timing: MP_N's key table is 8 KB."""
+    rep, got, secs = _launch_two_process(["--n", str(MP_N)])
+    loc, val = MP.build_instance(MP_N, 8, 0)
+    one = PP.auction_solve_overlapped(loc=loc, val=val, shape=(MP_N, MP_N),
+                                      mesh=PP.make_mesh([dev] * 2))
+    mt = one["meta"]
+    same = (np.array_equal(got["sol"], one["sol"])
+            and got["prices"].tobytes() == one["prices"].tobytes()
+            and (int(got["its"]), int(got["phases"]),
+                 float(got["final_eps"]))
+            == (mt["its"], mt["phases"], mt["final_eps"]))
+    log(f"[12 overlapped] two processes x 1 shard on the card (Gloo), n = "
+        f"{MP_N}: {secs:.1f} s with start-up, {rep['rounds']} rounds; == one "
+        f"process on [cuda] * 2 (sol, prices bits, rounds, phases, "
+        f"final_eps): {same}; obj {rep['obj']!r} == scipy "
+        f"{rep['scipy_obj']!r}: {rep['ok']}")
+    if not (same and rep["ok"]):
+        raise AssertionError("two-process overlapped run != one process")
+    return dict(n=MP_N, rounds=rep["rounds"])
 
 
 def main() -> None:
@@ -2933,18 +3371,22 @@ def main() -> None:
     phase_jacobi()
     probes = phase_probes()
     dk, k1b, k2b, prof, hy_launches, dev_launches = phase_batch()
-    sh_launches, sh_prof, sh_resolve = phase_sharded(head)
+    sh_launches, sh_prof, sh_resolve, ov = phases_sharded(head)
     del head
     # the batched paths of K1 (mode='device') and K2 (both batched modes),
     # and each one's device time in one mode='device' call (profiler)
-    # and the sharded path's launches (phase 11: K1, and K2's resolve
-    # launch alone), with the profiler split of 4 shards on the headline
+    # and the sharded and overlapped paths' launches (phases 11 and 12: K1,
+    # and K2's resolve launch alone), with the profiler split of 4 shards
+    # on the headline
+    ov_launches = dict(ov["launches"], **ov["solver_launches"])
     batched = {
         "bid_topk": dict(batched_launches=dev_launches["bid_topk_batched"],
                          batched_device_mode_ms=prof["k1_ms"],
                          **{f"batched_{k}": v for k, v in k1b.items()},
                          sharded_launches={k: v["bid_topk"] for k, v in
                                            sh_launches.items()},
+                         overlapped_launches={k: v["bid_topk"] for k, v in
+                                              ov_launches.items()},
                          sharded_profile=sh_prof),
         "commit": dict(batched_launches={
             "hybrid": hy_launches["commit"],
@@ -2953,6 +3395,8 @@ def main() -> None:
             **{f"batched_{k}": v for k, v in k2b.items()},
             sharded_launches={k: v["commit"] for k, v in
                               sh_launches.items()},
+            overlapped_launches={k: v["commit"] for k, v in
+                                 ov_launches.items()},
             sharded_resolve=sh_resolve),
     }
     kernels = []
@@ -2981,6 +3425,20 @@ def main() -> None:
                         library_ms=None,
                         **{f"{k}_c256": small[k] for k in
                            ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
+    # the fused key commit: launches on phase 12's overlapped headline
+    # runs (its main path), those of phase 11's sharded runs beside
+    kc = ov["commit_keys"]
+    kernels.append(dict(
+        name="commit_keys", **KERNELS["commit_keys"],
+        launches=sum(v["commit_keys"] for v in ov["launches"].values()),
+        **kc, overlapped_launches={k: v["commit_keys"] for k, v in
+                                   ov_launches.items()},
+        sharded_launches={k: v["commit_keys"] for k, v in
+                          sh_launches.items()},
+        overlapped_profile=ov["profile"], breakdown=ov["breakdown"],
+        two_process=ov["two_process"],
+        two_process_headline=ov["two_process_headline"],
+        overlapped_round_ms={s: ov[f"round_ms_{s}"] for s in (1, 4)}))
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3042,6 +3500,20 @@ def k3(label: str) -> None:
         flush=True)
 
 
+def commit_keys_timing(label: str) -> None:
+    """--commit-keys LABEL: phase 12's fused commit check and timings
+    alone (the headline's first two sharded rounds), printed as one line
+    "COMMIT_KEYS LABEL {...}" (numbers unrounded)."""
+    phase_device()
+    phase_build()
+    solver, _, _ = headline_solver()
+    head = solver.problem_spec
+    del solver
+    print("COMMIT_KEYS", label, json.dumps(
+        {"tree": os.path.dirname(os.path.abspath(__file__)),
+         **_commit_keys_check(head, _sharded_inputs(head))}), flush=True)
+
+
 def probes(label: str) -> None:
     """--probes LABEL: phase 9's timings alone
     (probe_timings), each kernel checked on the way, printed as one line
@@ -3060,7 +3532,11 @@ if __name__ == "__main__":
         k12(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--k3":
         k3(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--commit-keys":
+        commit_keys_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-cpu":
         sharded_cpu(sys.argv[2])
+    elif len(sys.argv) > 2 and sys.argv[1] == "--overlapped-cpu":
+        sharded_cpu(sys.argv[2], overlapped=True)
     else:
         main()

@@ -5,11 +5,11 @@ native host tail; square and rectangular), 'device' (the whole eps-scaled
 Jacobi auction on ``device``), 'cpu' (native Gauss-Seidel) and 'auto' (the
 reference's routing), and the 'dense' engine of mode 'hybrid' (dense
 device rounds + native GS tail through the batched dense engine, picked by
-engine='auto' for dense-dominated square instances), and 'sharded' (the
-row-sharded Jacobi solve of ``parallel/sharded.py`` over every local CUDA
-device, or over ``device`` when the caller names one or the CPU).  The
-'overlapped' and 'sharded_hybrid' modes and the 'candidates' engine raise
-NotImplementedError (ROADMAP.md).
+engine='auto' for dense-dominated square instances), and 'sharded' and
+'overlapped' (the row-sharded Jacobi solves of ``parallel/sharded.py``
+and ``parallel/overlap.py`` over every local CUDA device, or over
+``device`` when the caller names one or the CPU).  The 'sharded_hybrid'
+mode and the 'candidates' engine raise NotImplementedError (ROADMAP.md).
 
 Returns a dict-like ``AuctionSolution`` with 'sol' (row -> col), 'meta'
 (objective, rounds, phases, final eps, solution-found flag, timing) and
@@ -129,7 +129,8 @@ class AuctionSolver:
             raise ValueError(f"unknown gs_engine {kw['gs_engine']!r}")
         if kw["mode"] not in MODES:
             raise ValueError(f"unknown mode {kw['mode']!r}")
-        if kw["mode"] not in ("auto", "device", "hybrid", "cpu", "sharded"):
+        if kw["mode"] not in ("auto", "device", "hybrid", "cpu", "sharded",
+                              "overlapped"):
             raise _not_ported(f"mode={kw['mode']!r}")
         if kw["engine"] not in ENGINES:
             raise ValueError(f"unknown engine {kw['engine']!r}")
@@ -171,7 +172,7 @@ class AuctionSolver:
         prob = self.problem_spec
         if prob.vals.dtype == np.float64:
             # float64 rides the host path, as in the reference
-            if self.mode in ("device", "hybrid", "sharded"):
+            if self.mode in ("device", "hybrid", "sharded", "overlapped"):
                 raise ValueError(
                     "float64 costs are solved on the native CPU path; use "
                     "mode='cpu' or 'auto'")
@@ -259,8 +260,8 @@ class AuctionSolver:
                 "(detected by Hopcroft-Karp cardinality check; pass "
                 "cardinality_check=False to attempt anyway)")
         mode = self._resolve_mode()
-        if mode == "sharded":
-            return self._solve_sharded(warm_prices, warm_fr)
+        if mode in ("sharded", "overlapped"):
+            return self._solve_sharded(mode, warm_prices, warm_fr)
         if mode == "device":
             return self._solve_device(prob, warm_prices, t0)
         if self._resolve_engine(mode, warm=warm_prices is not None) == \
@@ -289,20 +290,24 @@ class AuctionSolver:
                          time=time.perf_counter() - t0)
         return AuctionSolution(sol=sol, meta=self.meta, prices=self.prices)
 
-    def _solve_sharded(self, warm_prices, warm_fr: int) -> AuctionSolution:
-        """mode='sharded': ``parallel.auction_solve_sharded`` over every
-        local CUDA device (``device="cuda"``), or over the one device named
-        (``"cuda:1"``, ``"cpu"``).  As in the reference, warm_mode='fr'
-        does not apply there; the port warns."""
-        from sslap_tpu_torch.parallel import auction_solve_sharded, \
-            make_mesh
+    def _solve_sharded(self, mode: str, warm_prices,
+                       warm_fr: int) -> AuctionSolution:
+        """mode='sharded' / 'overlapped': ``parallel.auction_solve_sharded``
+        / ``auction_solve_overlapped`` over every local CUDA device
+        (``device="cuda"``), or over the one device named (``"cuda:1"``,
+        ``"cpu"``).  As in the reference, warm_mode='fr' does not apply
+        there; the port warns."""
+        from sslap_tpu_torch.parallel import auction_solve_overlapped, \
+            auction_solve_sharded, make_mesh
         if warm_fr:
-            warnings.warn("warm_mode='fr' does not apply to mode='sharded' "
+            warnings.warn(f"warm_mode='fr' does not apply to mode={mode!r} "
                           "(the raw warm prices are used)", stacklevel=3)
         dev = torch.device(self.device)
         mesh = make_mesh(None if dev.type == "cuda" and dev.index is None
                          else [dev])
-        res = auction_solve_sharded(
+        fn = {"sharded": auction_solve_sharded,
+              "overlapped": auction_solve_overlapped}[mode]
+        res = fn(
             self.problem_spec, problem=self.problem, mesh=mesh,
             eps_start=self.eps_start, eps_min=self.eps_min,
             theta=self.theta, theta_tail=self.theta_tail,

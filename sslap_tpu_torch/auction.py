@@ -294,14 +294,20 @@ def _local_rows(rows, mask, row_offset, n: int):
     return torch.where(mask & (loc >= 0) & (loc < n), loc, n)
 
 
-def commit_bids(best, winner, prices, owner, sigma, row_offset=0):
+def commit_bids(best, winner, prices, owner, sigma, row_offset=0, eps=None):
     """Apply resolved bids: raise prices, install winners, evict previous
     owners.  ``sigma`` may be a shard's rows (global ids ``row_offset`` +
     its index): winner and owner carry global ids, and rows outside the
-    shard are left alone.  Returns new (prices, owner, sigma)."""
+    shard are left alone.  With ``eps`` the commit is guarded, as the
+    overlapped round's (``parallel/overlap.py``): a column takes its bid
+    only if it still clears the current price by eps.  Returns new
+    (prices, owner, sigma)."""
     m = prices.shape[0]
     n = sigma.shape[0]
-    has = best > half_neg(prices.dtype)
+    if eps is None:
+        has = best > half_neg(prices.dtype)
+    else:
+        has = (winner != I32_MAX) & (best >= prices + eps)
     new_prices = torch.where(has, best, prices)
     col_idx = torch.arange(m, dtype=torch.int32, device=prices.device)
     # slot n absorbs the writes of columns that got no bid
@@ -364,12 +370,13 @@ def jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
     With ``combine`` the rows are one shard (global ids ``row_offset`` +
     local id): the shard resolves its bids under global ids, ``combine``
     merges the shards' per-column results, and every shard applies the
-    same commit to its replicas (``commit_bids``).  On the CPU that is
-    ``resolve_bids`` and ``combine(best, winner)``; on CUDA, K2's resolve
+    same commit to its replicas.  On the CPU that is ``resolve_bids``,
+    ``combine(best, winner)`` and ``commit_bids``; on CUDA, K2's resolve
     launch alone into ``keys``, ``combine.keys(keys)`` (one max of the
-    shards' key tables) and ``decode_keys``."""
+    shards' key tables, left in ``keys``) and the fused key commit
+    (``ops.commit.commit_keys``: decode, commit, ``keys`` zeroed)."""
     from sslap_tpu_torch.ops import bid_topk, commit
-    from sslap_tpu_torch.ops.commit import decode_keys, resolve
+    from sslap_tpu_torch.ops.commit import commit_keys, resolve
     n = sigma.shape[0]
     rows = torch.arange(n, dtype=torch.int32, device=sigma.device)
     ids = torch.where((sigma < 0) & (nvalid > 0), rows, n)
@@ -381,11 +388,9 @@ def jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
     gids = ids + row_offset          # pads (tgt == m) resolve nowhere
     if keys is not None:
         resolve(gids, tgt, bid, keys)
-        best, winner = decode_keys(combine.keys(keys), prices.dtype)
-        keys.zero_()
-    else:
-        best, winner = combine(*resolve_bids(tgt, bid, prices.shape[0],
-                                             gids))
+        commit_keys(combine.keys(keys), prices, owner, sigma, row_offset)
+        return prices, owner, sigma
+    best, winner = combine(*resolve_bids(tgt, bid, prices.shape[0], gids))
     p, o, s = commit_bids(best, winner, prices, owner, sigma, row_offset)
     prices.copy_(p)
     owner.copy_(o)

@@ -25,7 +25,9 @@ the batch; ``batch_from_dense`` builds one from a [B, n, m] stack).
 With ``mesh=`` the batch splits into equal blocks of instances over the
 mesh's ``batch_axis``, each block solved by 'device' on its device (data
 parallel, no collective: instances are independent, so the results equal
-the call without a mesh); 'cpu' ignores the mesh, as the reference does.
+the call without a mesh); on a mesh that spans processes each process
+solves its entries' blocks and the results are gathered; 'cpu' ignores
+the mesh, as the reference does.
 """
 
 from __future__ import annotations
@@ -205,8 +207,8 @@ def auction_solve_batched(
     ``device`` is where the device rounds run ("cpu" runs the kernels'
     plain twins).  ``mesh`` (a ``parallel.Mesh``) shards the batch over
     its ``batch_axis`` in 'device' mode: B must divide evenly over it, and
-    block i of B / size instances runs on the mesh's device i (no
-    chunking)."""
+    block i of B / size instances runs on the mesh's device i, in the
+    process that owns it (no chunking)."""
     from sslap_tpu_torch.api import _objective_host
     cols, vals, valid, nvalid = prob.cols, prob.vals, prob.valid, prob.nvalid
     if cols.ndim != 3:
@@ -280,8 +282,10 @@ def auction_solve_batched(
             return np.concatenate(sols_parts, axis=0), metas
     if mesh is None:
         devices = [torch.device(device)]
+        mine = [0]
     else:
         devices = mesh.devices
+        mine = mesh.local_ranks()     # the mesh may span processes
         if B % mesh.shape[batch_axis] != 0:
             raise ValueError(
                 f"batch size {B} must divide evenly over the "
@@ -303,17 +307,21 @@ def auction_solve_batched(
     vals_t = tr.apply(vals)
     per = B // len(devices)
     parts = []
-    for i, dev in enumerate(devices):     # one block of instances a device
+    for i in mine:                        # one block of instances a device
         blk = slice(i * per, (i + 1) * per)
         t = lambda a: torch.from_numpy(  # noqa: E731
-            np.ascontiguousarray(a[blk])).to(dev)
+            np.ascontiguousarray(a[blk])).to(devices[i])
         parts.append(solve_ell_batched(
             t(cols), t(vals_t), t(valid), t(nvalid.astype(np.int32)), t(p0),
             e0, e_min, theta_v, max_iter, n_global=prob.n))
-    sols = np.concatenate([r.sigma.cpu().numpy() for r in parts])
-    rounds, phases, final_eps, left = (
+    fields = [np.concatenate([r.sigma.cpu().numpy() for r in parts])] + [
         np.concatenate([getattr(r, f) for r in parts])
-        for f in ("rounds", "phases", "final_eps", "unassigned"))
+        for f in ("rounds", "phases", "final_eps", "unassigned")]
+    if mesh is not None and mesh.spans_processes:
+        # every process solved its blocks: gather them all (a collective)
+        from sslap_tpu_torch.parallel.mesh import ProcessRows, fetch_global
+        fields = [fetch_global(ProcessRows(f)) for f in fields]
+    sols, rounds, phases, final_eps, left = fields
     t1 = time.perf_counter()
     metas = []
     for b in range(B):

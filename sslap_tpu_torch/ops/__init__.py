@@ -5,7 +5,10 @@ bid.py       -- K1, ``bid_topk``: bid stage (+ phase-start violator scan)
                 sslap_tpu/ops/bid.py::_bid_kernel; ``bid_topk_batched`` is
                 its batched entry (per-instance eps and bigp)
 commit.py    -- K2, ``commit``: resolve + commit of a compacted round;
-                replaces sslap_tpu/ops/commit.py::_commit_kernel
+                replaces sslap_tpu/ops/commit.py::_commit_kernel;
+                ``resolve`` is its first launch alone and ``commit_keys``
+                the fused key commit of the sharded and overlapped rounds
+                (no TPU kernel behind it: XLA jnp ops in the reference)
 ladder.py    -- ``ladder_phase``: one eps phase of the square tiered solve
                 (phase start, wide loop, tier ladder) as one persistent
                 kernel whose rounds are K1's bid + K2's resolve and

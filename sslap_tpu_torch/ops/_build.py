@@ -80,6 +80,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
         # ids, tgt, bid, C, m, keys, stream
         fn.argtypes = [p, p, p, i64, i32, p, p]
+        fn = getattr(lib, f"sslap_commit_keys_{suffix}")
+        fn.restype = ctypes.c_int
+        # keys, m, prices, owner, sigma, n_local, row_offset, eps, half_neg,
+        # guarded, stream
+        fn.argtypes = [p, i32, p, p, p, i32, i32, scalar, scalar, c_int, p]
         fn = getattr(lib, f"sslap_ladder_{suffix}")
         fn.restype = ctypes.c_int
         # cols, vals_m, nvalid, prices, owner, sigma, keys, ids0, ids1,

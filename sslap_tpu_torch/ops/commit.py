@@ -11,16 +11,27 @@ touches), then a commit; its note says what bounds it on the card.
 ``commit_plain`` is the same function as torch ops around
 ``auction.resolve_bids`` (scatter-reduce amax, then amin).
 
-``resolve`` is the kernel's first launch alone, for the sharded round
-(``parallel/sharded.py``): a shard folds its bids into its [m] key table,
-the shards' tables are combined by one elementwise max (``keys_max``) and
-decoded (``decode_keys``) into the reference's combined (best, winner).
+``resolve`` is the kernel's first launch alone, for the sharded and
+overlapped rounds (``parallel/``): a shard folds its bids into its [m]
+key table, and the shards' tables are combined by one elementwise max
+(an all-reduce with bit 63 flipped: ``KEY_FLIP``), whose decoding
+(``decode_keys``) is the reference's combined (best, winner).
 ``resolve_plain`` is the same as torch ops: the keys of ``bid_key_np``'s
 rule, a scatter max per column.
 
-``commit`` and ``resolve`` dispatch by device: a CPU tensor goes to the
-twin, a CUDA tensor launches the kernel (or raises), and nothing falls
-back.
+``commit_keys`` is the sharded and overlapped rounds' commit, fused
+into one launch of ``csrc/commit.cu`` (no Pallas kernel behind it: it
+replaces the XLA jnp decode and commit of ``sslap_tpu/auction.py``'s
+``commit_bids`` and the guarded commit of
+``sslap_tpu/parallel/overlap.py:95-108``): per column of the combined
+key table that holds a bid, decode (best, winner), accept it (always, or
+guarded: if it clears the price by eps), evict the old owner and install
+the winner where their rows are the shard's, and zero the key.
+``commit_keys_plain`` is ``decode_keys`` then ``auction.commit_bids``.
+
+``commit``, ``resolve`` and ``commit_keys`` dispatch by device: a CPU
+tensor goes to the twin, a CUDA tensor launches the kernel (or raises),
+and nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,7 +39,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sslap_tpu_torch.auction import I32_MAX, neg_sentinel, resolve_bids
+from sslap_tpu_torch import auction as _auction
+from sslap_tpu_torch.auction import I32_MAX, half_neg, neg_sentinel, \
+    resolve_bids
 from sslap_tpu_torch.ops import _build
 
 # A key's bit 63 flipped: its unsigned order is then the signed int64
@@ -202,16 +215,6 @@ def resolve(ids, tgt, bid, keys):
 resolve.launches = 0
 
 
-def keys_max(tables):
-    """Elementwise max, in the kernel's unsigned key order, of key tables
-    on one device: one max is the reference's pmax of best, then pmin of
-    winner among the tables that hold it."""
-    out = tables[0] ^ KEY_FLIP
-    for t in tables[1:]:
-        out = torch.maximum(out, t ^ KEY_FLIP)
-    return out ^ KEY_FLIP
-
-
 def decode_keys(keys: torch.Tensor, dtype: torch.dtype):
     """(best [m] in ``dtype``, winner [m] int32) of a key table: the neg
     sentinel and INT32_MAX where no bid landed, as ``auction.resolve_bids``
@@ -229,3 +232,72 @@ def decode_keys(keys: torch.Tensor, dtype: torch.dtype):
     best = bits.to(torch.int32).view(dtype)
     best = torch.where(has, best, torch.full_like(best, neg_sentinel(dtype)))
     return best, winner.to(torch.int32)
+
+
+def commit_keys_plain(keys, prices, owner, sigma, row_offset=0, eps=None):
+    """Plain torch twin of the fused key commit: ``decode_keys`` of the
+    combined [m] int64 ``keys``, then ``auction.commit_bids`` on this
+    shard's replicas ``prices`` and ``owner`` [m] and its rows ``sigma``
+    (global ids ``row_offset`` + index), guarded when ``eps`` is given.
+    ``prices``, ``owner`` and ``sigma`` are updated IN PLACE and ``keys``
+    is zeroed; returns (prices, owner, sigma).
+
+    The kernel commits each column in one pass, which equals the twin's
+    every-eviction-before-any-assignment only when no row is both evicted
+    and assigned in one commit.  The solvers promise that (a winner was
+    unassigned when it bid, and the overlapped round's pending rows do not
+    bid again); the twin checks it and raises where it breaks."""
+    best, winner = decode_keys(keys, prices.dtype)
+    if eps is None:
+        acc = best > half_neg(prices.dtype)
+    else:
+        acc = (winner != I32_MAX) & (best >= prices + eps)
+    evicted = owner[acc & (owner >= 0)]
+    if torch.isin(winner[acc], evicted).any():
+        raise RuntimeError("commit_keys: a row is both evicted and assigned "
+                           "in one commit")
+    p, o, s = _auction.commit_bids(best, winner, prices, owner, sigma,
+                                   row_offset, eps=eps)
+    prices.copy_(p)
+    owner.copy_(o)
+    sigma.copy_(s)
+    keys.zero_()
+    return prices, owner, sigma
+
+
+def commit_keys(keys, prices, owner, sigma, row_offset=0, eps=None):
+    """The fused key commit: see ``commit_keys_plain`` for the contract.
+    CUDA tensors launch ``csrc/commit.cu``'s commit_keys_kernel (four
+    columns a thread, in stages)."""
+    if keys.device.type == "cpu":
+        return commit_keys_plain(keys, prices, owner, sigma, row_offset, eps)
+    if keys.device.type != "cuda":
+        raise RuntimeError(f"commit_keys: unsupported device {keys.device}")
+    dtype = prices.dtype
+    if dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"commit_keys: unsupported dtype {dtype}")
+    m = keys.shape[0]
+    n = sigma.shape[0]
+    for name, t, dt, shape in (
+            ("keys", keys, torch.int64, (m,)), ("prices", prices, dtype, (m,)),
+            ("owner", owner, torch.int32, (m,)),
+            ("sigma", sigma, torch.int32, (n,))):
+        if t.device != keys.device or t.dtype != dt or \
+                not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"commit_keys: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {keys.device}")
+    scalar = float if dtype == torch.float32 else int
+    lib = _build.load()
+    fn = (lib.sslap_commit_keys_f32 if dtype == torch.float32
+          else lib.sslap_commit_keys_i32)
+    err = fn(keys.data_ptr(), m, prices.data_ptr(), owner.data_ptr(),
+             sigma.data_ptr(), n, int(row_offset),
+             scalar(0 if eps is None else eps), half_neg(dtype),
+             int(eps is not None),
+             torch.cuda.current_stream(keys.device).cuda_stream)
+    _build.check(err, "commit_keys")
+    commit_keys.launches += 1
+    return prices, owner, sigma
+
+
+commit_keys.launches = 0

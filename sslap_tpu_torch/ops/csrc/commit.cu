@@ -29,7 +29,8 @@
 // eps-phase ladder (ladder.cu) runs round.cuh's bid_key and commit_bid in
 // its stages A and B; this standalone pair serves auction.jacobi_round,
 // the batched Jacobi solve and the dense engine; the resolve launch alone
-// (sslap_resolve_*) serves the sharded round.  One cooperative launch
+// (sslap_resolve_*) serves the sharded and overlapped rounds, whose commit
+// is commit_keys_kernel below.  One cooperative launch
 // with a grid barrier between the passes was tried and lost: 6.5 us a
 // launch with no bidder against 4.7 us for the two, and the batched
 // mode='device' solve launches K2 on mostly dead id lists (PERF.md).
@@ -168,9 +169,130 @@ int launch_resolve(const int32_t* ids, const int32_t* tgt, const T* bid,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fused key commit of the sharded and overlapped rounds
+// (ops/commit.py:commit_keys).  No Pallas kernel stands behind it: it
+// replaces the XLA jnp decode and commit of sslap_tpu/auction.py's
+// commit_bids and the guarded commit of sslap_tpu/parallel/overlap.py:95-108
+// that each shard applies to its replicas once a round.  Per column j of
+// the combined key table: a zero key (no bid) is left alone;
+// else the key is zeroed, (best, winner) decoded (the inverse of bid_key),
+// and the bid accepted (guarded: best >= prices[j] + eps, one add and a
+// compare in T, the reference's op; unguarded: best > half_neg, as
+// commit_bids reads the decoded table).  An accepted bid evicts the old
+// owner and installs the winner where their rows are the shard's
+// [row_offset, row_offset + n_local), and writes prices[j] and owner[j].
+// One pass equals the reference's every-eviction-before-any-assignment
+// because no row is both evicted and assigned in one commit (a winner was
+// unassigned when it bid; the plain version checks it).
+//
+// Bound on an H100: the [m] keys read (8 B a column) and, per column with a
+// bid, its key zeroed and its price read (guarded) and written with the
+// owner (read and written), and two 4-byte sigma writes: about 32 MB at
+// m = 1M when every column has a bid, 9.6 us at 3.35 TB/s.  The accesses
+// are coalesced (neighbouring threads take neighbouring columns) except the
+// sigma writes, scattered 4-byte stores.  A thread takes kKeyCols columns
+// a grid stride apart and runs them in stages (all keys, then the prices
+// of those with a bid, then the owners of the accepted, then the writes),
+// so that a thread keeps that many loads in flight (one column a thread
+// left most of the card's memory rate unused).
+constexpr int kKeyCols = 4;
+
+__device__ __forceinline__ float decode_bid(uint32_t hi, float) {
+  return __uint_as_float((hi & 0x80000000u) ? (hi ^ 0x80000000u) : ~hi);
+}
+
+__device__ __forceinline__ int32_t decode_bid(uint32_t hi, int32_t) {
+  return static_cast<int32_t>(hi ^ 0x80000000u);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(sslap::kBlock)
+    commit_keys_kernel(unsigned long long* __restrict__ keys, int32_t m,
+                       T* __restrict__ prices, int32_t* __restrict__ owner,
+                       int32_t* __restrict__ sigma, int32_t n_local,
+                       int32_t row_offset, T eps, T half_neg, int guarded) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t j0 = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                     threadIdx.x;
+  unsigned long long k[kKeyCols];
+  bool any = false;
+#pragma unroll
+  for (int u = 0; u < kKeyCols; ++u) {
+    const int64_t j = j0 + u * stride;
+    k[u] = j < m ? keys[j] : 0ull;
+    any |= k[u] != 0ull;
+  }
+  if (!any) return;
+  T best[kKeyCols], price[kKeyCols];
+#pragma unroll
+  for (int u = 0; u < kKeyCols; ++u) {
+    if (k[u] == 0ull) continue;
+    const int64_t j = j0 + u * stride;
+    keys[j] = 0ull;
+    best[u] = decode_bid(static_cast<uint32_t>(k[u] >> 32), T());
+    if (guarded) price[u] = prices[j];
+  }
+  bool accept[kKeyCols];
+  int32_t prev[kKeyCols];
+#pragma unroll
+  for (int u = 0; u < kKeyCols; ++u) {
+    accept[u] = k[u] != 0ull &&
+                (guarded ? best[u] >= price[u] + eps : best[u] > half_neg);
+    if (accept[u]) prev[u] = owner[j0 + u * stride];
+  }
+  const uint32_t local_n = static_cast<uint32_t>(n_local);
+#pragma unroll
+  for (int u = 0; u < kKeyCols; ++u) {
+    if (!accept[u]) continue;
+    const int64_t j = j0 + u * stride;
+    const int32_t winner =
+        static_cast<int32_t>(0xFFFFFFFFu - static_cast<uint32_t>(k[u]));
+    prices[j] = best[u];
+    owner[j] = winner;
+    if (prev[u] >= 0) {
+      const uint32_t e = static_cast<uint32_t>(prev[u] - row_offset);
+      if (e < local_n) sigma[e] = -1;
+    }
+    const uint32_t w = static_cast<uint32_t>(winner - row_offset);
+    if (w < local_n) sigma[w] = static_cast<int32_t>(j);
+  }
+}
+
+template <typename T>
+int launch_commit_keys(unsigned long long* keys, int32_t m, T* prices,
+                       int32_t* owner, int32_t* sigma, int32_t n_local,
+                       int32_t row_offset, T eps, T half_neg, int guarded,
+                       void* stream) {
+  const unsigned grid =
+      m > 0 ? sslap::grid_for((m + kKeyCols - 1) / kKeyCols) : 1;
+  commit_keys_kernel<T><<<grid, sslap::kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      keys, m, prices, owner, sigma, n_local, row_offset, eps, half_neg,
+      guarded);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+int sslap_commit_keys_f32(unsigned long long* keys, int32_t m, float* prices,
+                          int32_t* owner, int32_t* sigma, int32_t n_local,
+                          int32_t row_offset, float eps, float half_neg,
+                          int guarded, void* stream) {
+  return launch_commit_keys<float>(keys, m, prices, owner, sigma, n_local,
+                                   row_offset, eps, half_neg, guarded,
+                                   stream);
+}
+
+int sslap_commit_keys_i32(unsigned long long* keys, int32_t m,
+                          int32_t* prices, int32_t* owner, int32_t* sigma,
+                          int32_t n_local, int32_t row_offset, int32_t eps,
+                          int32_t half_neg, int guarded, void* stream) {
+  return launch_commit_keys<int32_t>(keys, m, prices, owner, sigma, n_local,
+                                     row_offset, eps, half_neg, guarded,
+                                     stream);
+}
 
 int sslap_resolve_f32(const int32_t* ids, const int32_t* tgt,
                       const float* bid, int64_t C, int32_t m,

@@ -1,8 +1,10 @@
-"""Distribution layer: the row-sharded Jacobi auction over a mesh of
-devices, driven by one process.  Counterpart of ``sslap_tpu/parallel/``;
-ported so far: ``partition.py``, ``mesh.py`` (single process) and
-``sharded.py``.  The overlapped and sharded-hybrid solves, the scaling
-harness and process-spanning meshes are not ported yet (ROADMAP.md)."""
+"""Distribution layer: the row-sharded auction over a mesh of devices, in
+one process or across processes (``torch.distributed``).  Counterpart of
+``sslap_tpu/parallel/``: ``partition.py``, ``mesh.py``, ``sharded.py``,
+``overlap.py`` and ``scaling.py`` are ported; ``multiproc.py`` launches
+the multi-process runs.  The sharded-hybrid solve
+(``auction_solve_sharded_hybrid``, ``sharded_ladder_tiers``) is not
+ported yet (ROADMAP.md)."""
 
 from sslap_tpu_torch.parallel.mesh import Mesh, initialize_multihost, \
     make_mesh
@@ -10,6 +12,9 @@ from sslap_tpu_torch.parallel.partition import pad_rows_for_mesh, \
     partition_rows, shard_nnz_counts
 from sslap_tpu_torch.parallel.sharded import auction_solve_sharded, \
     sharded_solve_ell
+from sslap_tpu_torch.parallel.overlap import auction_solve_overlapped, \
+    solve_ell_overlapped
+from sslap_tpu_torch.parallel.scaling import measure_round_breakdown
 
 __all__ = [
     "Mesh",
@@ -19,5 +24,8 @@ __all__ = [
     "partition_rows",
     "shard_nnz_counts",
     "auction_solve_sharded",
+    "auction_solve_overlapped",
     "sharded_solve_ell",
+    "solve_ell_overlapped",
+    "measure_round_breakdown",
 ]

@@ -13,17 +13,19 @@ with the reference's injection points.  Every Jacobi round:
   2. the shards' results are combined: on the CPU pmax of best, then pmin
      of winner among the shards holding the max; on CUDA one elementwise
      max of the key tables, which is the same rule (highest bid, then
-     lowest global row) in one pass, after which every key table is
-     zeroed again;
+     lowest global row) in one pass;
   3. every shard applies the same commit to its replicas and updates the
-     rows of sigma it owns (``commit_bids`` with ``row_offset``).
+     rows of sigma it owns: ``commit_bids`` with ``row_offset`` on the
+     CPU, the fused key commit on CUDA (``ops.commit.commit_keys``, which
+     also zeroes the key table again).
 
 The loop control reads a count summed over the shards, so every shard
-leaves each phase on the same round.  A single process drives the shards
-(``mesh.run_spmd``: a thread each, collectives through a ``ThreadGroup``);
-shards on one card launch in turn on its one stream.  With
-``partition='rows'`` the result is bit-identical to the unsharded
-``solve_ell``.
+leaves each phase on the same round.  Each process drives its shards of
+the mesh (``mesh.run_spmd``: a thread each, collectives through its
+group; the shards of a process-spanning mesh reduce across processes
+with ``torch.distributed``); shards on one card launch in turn on its one
+stream.  With ``partition='rows'`` the result is bit-identical to the
+unsharded ``solve_ell``.
 """
 
 from __future__ import annotations
@@ -37,20 +39,37 @@ import torch
 from sslap_tpu_torch import auction as _auction
 from sslap_tpu_torch.auction import I32_MAX
 from sslap_tpu_torch.ingest import ELLProblem
-from sslap_tpu_torch.ops.commit import keys_max
-from sslap_tpu_torch.parallel.mesh import Mesh, ThreadGroup, fetch_global, \
-    make_mesh, run_spmd
+from sslap_tpu_torch.ops.commit import KEY_FLIP
+from sslap_tpu_torch.parallel.mesh import Mesh, ProcessRows, ThreadGroup, \
+    fetch_global, make_mesh, run_spmd
 from sslap_tpu_torch.parallel.partition import partition_rows
+
+
+class _Combined:
+    """The max of the shards' key tables in flight: ``wait()`` writes it
+    into the shard's own table and returns that."""
+
+    def __init__(self, keys, handle=None):
+        self.keys, self.handle = keys, handle
+
+    def wait(self):
+        if self.handle is not None:
+            torch.bitwise_xor(self.handle.wait(), KEY_FLIP, out=self.keys)
+            self.handle = None
+        return self.keys
 
 
 def make_pmax_combine(group: ThreadGroup, rank: int):
     """Cross-shard combine of rank ``rank``: ``combine(best, winner)`` is
     the max bid, then the min row id among the shards holding it (two
-    all-reduces of [m]; the max taken in rank order keeps the first of
-    equal values, as the reference's pmax does with -0.0 and +0.0);
-    ``combine.keys(keys)`` is the max of the shards' key tables (one
-    all-reduce of [m] int64), the same rule on CUDA, where a zero best
-    decodes as +0.0 (``decode_keys``)."""
+    all-reduces of [m]; within a process the max is taken in rank order,
+    which keeps the first of equal values, as the reference's pmax does
+    with -0.0 and +0.0); ``combine.keys(keys)`` leaves the max of the
+    shards' key tables in ``keys`` (one all-reduce of [m] int64; bit 63
+    flipped around it, so the signed max is the keys' unsigned order:
+    ``ops.commit.KEY_FLIP``), the same rule on CUDA, where a zero best
+    decodes as +0.0 (``decode_keys``); ``combine.keys_async(keys)`` starts
+    it and returns a handle whose ``wait()`` does the rest."""
 
     def combine(best, winner):
         best_g = group.all_reduce(rank, best, torch.maximum)
@@ -58,9 +77,35 @@ def make_pmax_combine(group: ThreadGroup, rank: int):
                            torch.full_like(winner, I32_MAX))
         return best_g, group.all_reduce(rank, cand, torch.minimum)
 
-    combine.keys = lambda keys: group.all_reduce(
-        rank, keys, lambda a, b: keys_max([a, b]))
+    def keys_async(keys):
+        if group.world == 1:
+            return _Combined(keys)
+        return _Combined(keys, group.all_reduce_async(
+            rank, keys ^ KEY_FLIP, torch.maximum))
+
+    combine.keys_async = keys_async
+    combine.keys = lambda keys: keys_async(keys).wait()
     return combine
+
+
+def local_combine(best, winner):
+    """The identity combine: each shard commits its own bids alone (the
+    round without its collective, ``parallel/scaling.py``)."""
+    return best, winner
+
+
+local_combine.keys = lambda keys: keys
+local_combine.keys_async = _Combined
+
+
+def gather_rows(mesh: Mesh, parts):
+    """This process's shards' row blocks (one tensor each, in rank order)
+    as one result: a tensor on the mesh's first device, or, on a mesh
+    that spans processes, a ``ProcessRows`` that ``fetch_global``
+    gathers."""
+    first = mesh.devices[mesh.local_ranks()[0]]
+    local = torch.cat([p.to(first) for p in parts])
+    return ProcessRows(local) if mesh.spans_processes else local
 
 
 def sharded_solve_ell(prob: ELLProblem, vals_t: np.ndarray, mesh: Mesh,
@@ -72,7 +117,7 @@ def sharded_solve_ell(prob: ELLProblem, vals_t: np.ndarray, mesh: Mesh,
     ``vals_t`` [n, K] the transformed values, ``p0`` [m] the start prices,
     ``n_real`` the pre-padding row count (the dummy count is m - n_real),
     ``bigp`` the global one.  Returns the SolveResult with sigma gathered
-    and the prices of replica 0, both on the mesh's first device."""
+    (``gather_rows``) and the prices of this process's first replica."""
     n_shards = mesh.shape[axis_name]
     n_pad = prob.n
     if n_pad % n_shards != 0:
@@ -103,9 +148,8 @@ def sharded_solve_ell(prob: ELLProblem, vals_t: np.ndarray, mesh: Mesh,
                                                      torch.minimum))
 
     results = run_spmd(mesh, run)
-    first = mesh.devices[0]
     return results[0]._replace(
-        sigma=torch.cat([r.sigma.to(first) for r in results]))
+        sigma=gather_rows(mesh, [r.sigma for r in results]))
 
 
 def auction_solve_sharded(mat=None, *, loc=None, val=None, shape=None,
@@ -123,15 +167,13 @@ def auction_solve_sharded(mat=None, *, loc=None, val=None, shape=None,
     local CUDA device).  ``partition``: 'rows' (contiguous blocks,
     bit-identical to the unsharded solve) or 'nnz' (rows relabeled so the
     shards carry near-equal nnz; the same optimum, assignments may differ
-    on cost ties).  ``instrument=True`` (the per-round comm/compute split)
-    is not ported yet."""
+    on cost ties).  ``instrument=True`` also measures the per-round
+    comm/compute split on this mesh (``parallel/scaling.py``) and adds
+    ``round_s``, ``compute_s``, ``comm_s``, ``comm_fraction``,
+    ``nnz_imbalance`` to the meta."""
     from sslap_tpu_torch import api as _api
     from sslap_tpu_torch import feasibility as _feas
 
-    if instrument:
-        raise _api._not_ported("auction_solve_sharded(instrument=True) "
-                               "(parallel/scaling.py, ROADMAP.md queue 1 "
-                               "item 3d)")
     t0 = time.perf_counter()
     prob = _api._ingest_any(mat=mat, loc=loc, val=val, shape=shape,
                             dtype=dtype)
@@ -198,5 +240,10 @@ def auction_solve_sharded(mat=None, *, loc=None, val=None, shape=None,
         "n_shards": mesh.shape[axis_name],
         "mode": "sharded",
     }
+    if instrument:
+        from sslap_tpu_torch.parallel.scaling import measure_round_breakdown
+        meta.update(measure_round_breakdown(
+            prob, mesh, problem=problem, axis_name=axis_name,
+            partition=partition))
     return _api.AuctionSolution(sol=sol, meta=meta,
                                 prices=fetch_global(res.prices))

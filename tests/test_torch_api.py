@@ -174,7 +174,7 @@ def test_infeasible_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="overlapped"), dict(mode="sharded_hybrid"),
+    dict(mode="sharded_hybrid"),
     dict(engine="candidates"), dict(engine="candidates", mode="hybrid"),
     dict(engine="candidates", mode="device"),
 ])
@@ -183,6 +183,22 @@ def test_unported_modes_and_engines_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.AuctionSolver(loc=loc, val=val, shape=(50, 50), device="cpu",
                         **kw).solve()
+
+
+def test_mode_overlapped_solves_as_the_reference():
+    """mode='overlapped' (formerly refused) routes to the overlapped
+    row-sharded solve: AuctionSolver and auction_solve on the CPU equal
+    the reference's (which runs on the eight virtual devices: the result
+    does not depend on the shard count)."""
+    loc, val = _instance(12, 50, True)
+    r = R.AuctionSolver(loc=loc, val=val, shape=(50, 50),
+                        mode="overlapped").solve()
+    p = P.AuctionSolver(loc=loc, val=val, shape=(50, 50), mode="overlapped",
+                        device="cpu").solve()
+    _assert_same(r, p)
+    assert p["meta"]["overlap"] is True and p["meta"]["soln_found"]
+    _assert_same(r, P.auction_solve(loc=loc, val=val, shape=(50, 50),
+                                    mode="overlapped", device="cpu"))
 
 
 def test_unported_paths_raise_instead_of_rerouting():

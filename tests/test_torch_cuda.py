@@ -1129,3 +1129,105 @@ def test_greedy_matching_on_cuda_matches_cpu(dev):
             np.testing.assert_array_equal(a, b)
         assert PF.hopcroft_karp(prob, device_seed=True, device=dev)[2] == \
             PF.hopcroft_karp(prob)[2]
+
+
+def _commit_state(rng, n, m, n_local, row_offset, dtype, dev):
+    """A shard's replicas and rows before a commit: a random matching of
+    half the rows (owner and sigma consistent; owner also holds rows of
+    other shards), random prices, and a combined key table whose winners
+    are unassigned rows (the solvers' promise) with bids on ~70% of the
+    columns, some below price + eps."""
+    from sslap_tpu_torch.ops.commit import KEY_FLIP, _flipped_keys
+    rows = rng.permutation(n)
+    held = rows[: n // 2]
+    owner = np.full(m, -1, np.int32)
+    cols = rng.permutation(m)[: held.size]
+    owner[cols] = held
+    sigma = np.full(n, -1, np.int32)
+    sigma[held] = cols
+    free = rows[n // 2:]
+    has = rng.random(m) < 0.7
+    winner = np.full(m, 2 ** 31 - 1, np.int64)
+    winner[has] = rng.choice(free, has.sum())
+    if dtype == np.float32:
+        prices = rng.random(m).astype(np.float32) * 10
+        best = (prices + rng.normal(0.5, 1.0, m)).astype(np.float32)
+        eps = np.float32(0.25)
+    else:
+        prices = rng.integers(0, 100, m).astype(np.int32)
+        best = (prices + rng.integers(-3, 6, m)).astype(np.int32)
+        eps = np.int32(2)
+    # one winner a column and a row wins at most one column
+    _, first = np.unique(winner, return_index=True)
+    keep = np.zeros(m, bool)
+    keep[first] = True
+    has &= keep
+    keys = torch.where(
+        torch.from_numpy(has),
+        _flipped_keys(torch.from_numpy(best),
+                      torch.from_numpy(np.where(has, winner, 0))) ^ KEY_FLIP,
+        0)
+    sl = slice(row_offset, row_offset + n_local)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (keys.numpy(), prices, owner, sigma[sl])], eps
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("shape", [(4000, 4000, 1), (6000, 7000, 3)])
+def test_commit_keys_kernel_matches_plain(dev, dtype, guarded, shape):
+    """The fused key commit (ops.commit.commit_keys) against its plain
+    version, on one shard and on shard 1 of 3 (rows outside the shard
+    left alone): prices bits, owner, sigma equal; both tables zeroed."""
+    import importlib
+    K2 = importlib.import_module("sslap_tpu_torch.ops.commit")
+    n, m, shards = shape
+    n_local = n // shards
+    off = n_local if shards > 1 else 0
+    out = {}
+    for side, d in (("kernel", dev), ("plain", torch.device("cpu"))):
+        state, eps = _commit_state(np.random.default_rng(n + guarded), n, m,
+                                   n_local, off, dtype, d)
+        launches = K2.commit_keys.launches
+        K2.commit_keys(*state, row_offset=off, eps=eps if guarded else None)
+        torch.cuda.synchronize()
+        assert K2.commit_keys.launches == launches + (side == "kernel")
+        out[side] = [t.cpu() for t in state]
+    for a, b in zip(out["kernel"], out["plain"]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(out["kernel"][0].count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("case", ["square_f32", "square_i32"])
+def test_overlapped_solve_on_one_card_matches_cpu(dev, case):
+    """The overlapped solve on three shards of one card (K1, K2's resolve
+    launch into alternating key tables, their max, the guarded fused
+    commit) against three CPU shards and one card shard: sol, prices bits,
+    rounds and phases equal; K1, the resolve and the fused commit launch
+    once a shard a round."""
+    from sslap_tpu_torch import parallel as PP
+    from sslap_tpu_torch.ops.commit import commit_keys, resolve
+    n = 300
+    rng = np.random.default_rng(32)
+    rr = np.concatenate([np.repeat(np.arange(n), 6), np.arange(n)])
+    cc = np.concatenate([rng.integers(0, n, n * 6), rng.permutation(n)])
+    _, idx = np.unique(rr * n + cc, return_index=True)
+    loc = np.stack([rr[idx], cc[idx]], 1)
+    val = (rng.random(len(idx)) * 99 + 1).astype(np.float32) \
+        if case == "square_f32" else rng.integers(1, 100, len(idx))
+    kw = dict(loc=loc, val=val, shape=(n, n))
+    bid_topk.launches = resolve.launches = commit_keys.launches = 0
+    on_card = PP.auction_solve_overlapped(mesh=PP.make_mesh([dev] * 3), **kw)
+    torch.cuda.synchronize()
+    rounds = on_card["meta"]["its"]
+    assert bid_topk.launches == resolve.launches == commit_keys.launches \
+        == 3 * rounds > 0
+    one = PP.auction_solve_overlapped(mesh=PP.make_mesh([dev]), **kw)
+    cpu = PP.auction_solve_overlapped(
+        mesh=PP.make_mesh([torch.device("cpu")] * 3), **kw)
+    for other in (one, cpu):
+        np.testing.assert_array_equal(on_card["sol"], other["sol"])
+        np.testing.assert_array_equal(_bits(torch.from_numpy(
+            on_card["prices"])), _bits(torch.from_numpy(other["prices"])))
+        assert all(on_card["meta"][k] == other["meta"][k]
+                   for k in ("its", "phases", "unassigned", "final_eps"))

@@ -2,7 +2,8 @@
 feasibility-seed and parallel modules included) and everything
 ``chip_smoke.py`` imports, then solving a small instance, a small batch
 and a sharded instance on the CPU through the native host runtime, with
-the device seed of the Hopcroft-Karp check, loads no jax and no file of the JAX
+the device seed of the Hopcroft-Karp check (the overlapped, scaling and
+multi-process modules imported too), loads no jax and no file of the JAX
 package (``sslap_tpu/``), and the port's native library is its own build
 under ``sslap_tpu_torch/_build/native/``.  Checked in a fresh interpreter
 (this test process has jax loaded by the test harness).
@@ -75,6 +76,9 @@ def test_port_loads_nothing_of_the_jax_package():
     assert "sslap_tpu_torch.gs_host" in names
     assert "sslap_tpu_torch.feasibility_device" in names
     assert "sslap_tpu_torch.parallel.sharded" in names
+    assert "sslap_tpu_torch.parallel.overlap" in names
+    assert "sslap_tpu_torch.parallel.scaling" in names
+    assert "sslap_tpu_torch.parallel.multiproc" in names
     if got["native"]:
         lib = Path(got["native_lib"]).resolve()
         assert lib.parent == ROOT / "sslap_tpu_torch" / "_build" / "native"

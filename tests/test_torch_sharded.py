@@ -215,12 +215,15 @@ def test_key_combine_equals_pmax_pmin_combine(shards):
     for best, winner in results:          # every replica the same
         np.testing.assert_array_equal(_bits(best.numpy()), _bits(want_best))
         np.testing.assert_array_equal(winner.numpy(), want_winner)
-    tables = []
-    for tgt, bid, rows in per_shard:
+    def run_keys(rank, group):
+        tgt, bid, rows = per_shard[rank]
         keys = torch.zeros(m, dtype=torch.int64)
         PK.resolve_plain(*map(torch.from_numpy, (rows, tgt, bid)), keys)
-        tables.append(keys)
-    best, winner = PK.decode_keys(PK.keys_max(tables), torch.float32)
+        return PS.make_pmax_combine(group, rank).keys(keys)
+
+    tables = PM.run_spmd(PP.make_mesh([CPU] * shards), run_keys)
+    assert all(torch.equal(t, tables[0]) for t in tables)
+    best, winner = PK.decode_keys(tables[0], torch.float32)
     np.testing.assert_array_equal(winner.numpy(), want_winner)
     # bit for bit, but where the reference's combined best is -0.0: the
     # keys canonicalise zero, which decodes as +0.0 (a solve never bids
@@ -340,22 +343,35 @@ def test_identity_combine_equals_the_unsharded_solve():
     assert torch.equal(res.prices, base.prices)
 
 
-def test_mesh_helpers_and_unported_parts():
+def test_mesh_helpers_and_unported_parts(monkeypatch):
     mesh = PP.make_mesh([CPU] * 3, axis_name="batch")
     assert mesh.shape == {"batch": 3} and mesh.axis_names == ("batch",)
     assert mesh.devices == [CPU] * 3
     with pytest.raises(ValueError):
         PP.Mesh([])
+    assert mesh.processes == [0] * 3 and not mesh.spans_processes
+    assert mesh.local_ranks() == [0, 1, 2]
     x = torch.arange(4)
     assert PM.put_global(x, mesh) is x
+    assert PM.put_global_args(mesh, (None, "rows"), (x, 5)) == (x, 5)
     np.testing.assert_array_equal(PM.fetch_global(x), np.arange(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PP.initialize_multihost()
+    # with nothing given and no group named by the environment: a no-op
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    assert PP.initialize_multihost() is None
+    assert not torch.distributed.is_initialized()
+    assert PM.process_count() == 1 and PM.process_index() == 0
     rng = np.random.default_rng(5)
     loc, val, _ = random_sparse_instance(rng, 10, 10, 0.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PP.auction_solve_sharded(loc=loc, val=val, shape=(10, 10),
-                                 mesh=mesh, instrument=True)
+    plain = PP.auction_solve_sharded(loc=loc, val=val, shape=(10, 10),
+                                     mesh=mesh, axis_name="batch")
+    timed = PP.auction_solve_sharded(loc=loc, val=val, shape=(10, 10),
+                                     mesh=mesh, axis_name="batch",
+                                     instrument=True)
+    np.testing.assert_array_equal(timed["sol"], plain["sol"])
+    for k in ("round_s", "compute_s", "comm_s", "comm_fraction"):
+        assert np.isfinite(timed["meta"][k]) and timed["meta"][k] >= 0
+    assert timed["meta"]["n_shards"] == 3
     with pytest.raises(ValueError, match="float64"):
         PP.auction_solve_sharded(loc=loc, val=val, shape=(10, 10),
                                  mesh=mesh, dtype=np.float64)
