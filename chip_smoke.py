@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k3 LABEL    # K3's timings on the headline tail
     python3 chip_smoke.py --probes LABEL  # the probe timings alone
     python3 chip_smoke.py --commit-keys LABEL  # the fused commit alone
+    python3 chip_smoke.py --sharded-hybrid LABEL  # phase 13 alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -192,6 +193,39 @@ of which raises on failure (so the exit code is non-zero):
                  equal bit for bit to the one-process solve and to
                  scipy's objective.  Phase 12's headline parts run right
                  after phase 11's, before the children start
+ 13. sharded hybrid -- parallel/sharded_compact.py (HK: phase 5's):
+                 (b) auction_solve_sharded_hybrid on the 1M headline
+                 (float32, trunc 256) on [cuda] and [cuda] * 4, complete:
+                 soln_found, |obj - obj_cpu| <= n * eps_min against phase
+                 5's mode="cpu" objective, the two runs equal bit for bit
+                 (sol, prices, its, phases, host bids), their device and
+                 host GS times, rounds by tier and analytic comm bytes
+                 beside the single-card hybrid's phase-5 solve; (a) K2
+                 over the four-shard run's first all-gathered set (D * C
+                 entries, C the first tier) as shards 0 and 2 committed
+                 it, float32 and int32 (rounded), against its plain
+                 version, exact, timed as in phase 3 beside its byte bound
+                 (ids and bid counted for the bidding entries alone) and
+                 scatter_reduce_ amax; (c) overlap=True on [cuda] * 4,
+                 its rounds against (b)'s; (d) AuctionSolver(mode=
+                 "sharded_hybrid", device="cuda") on phase 11's 5k float32
+                 instance, and the solve on [cuda] * 4 at trunc
+                 HYBRID_TRUNC, plain and ladder_balance=True
+                 (balance_floor 16), and balanced on the reference's
+                 contested instance (n = 5000), which must rebuild its
+                 buffers at least once, each bit for bit against the same
+                 solve on the CPU (a child, --sharded-hybrid-cpu, started
+                 at the phase's start); (e) multiproc --backend
+                 sharded_hybrid, two processes on the one card over Gloo
+                 at n = MP_N, equal bit for bit to the one-process [cuda] *
+                 2 solve and to scipy's objective; a torch.profiler
+                 window over the four-shard device pass's first
+                 HYBRID_PROFILE_ROUNDS rounds (K1, K2, the fused commit,
+                 torch ops, idle share).  Every run checks its
+                 launches: per shard K1 once a round, K2's resolve launch
+                 alone and the fused commit once a full-width round (the
+                 fused commit also once a phase for the overlapped
+                 regime's drain), K2 once a compact exchange round
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
@@ -235,7 +269,11 @@ launches on phase 12's overlapped runs (overlapped_launches).  The fused
 key commit's entry (commit_keys) counts its launches on phase 12's 1M
 overlapped runs, with phase 11's sharded ones beside, and carries the
 overlapped profiler split, round times, breakdowns and the two-process
-run.  The last line is
+run.  Phase 13 adds sharded_hybrid_launches to K1's entry (per run of
+(b)-(e); (e): worker 0's process), to K2's (its commit and its resolve
+launch alone, per run) with gathered_* beside ((a): ms, ms_device,
+plain_ms, bound, library_ms), and to the fused commit's (on (b)), with
+the headline's sharded hybrid summary (sharded_hybrid).  The last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 --k12 LABEL runs only the K1 and K2 measurements: phase 3's at C = 1M
@@ -261,7 +299,12 @@ rows, closed form and conflict instances) and prints them as one line
 ladder_inputs has no first= skips the conflict instances).
 
 --sharded-cpu PATH is phase 11's child: its solves on CPU meshes, saved to
-PATH (npz); --overlapped-cpu PATH is phase 12's.
+PATH (npz); --overlapped-cpu PATH is phase 12's, --sharded-hybrid-cpu
+PATH phase 13's.
+
+--sharded-hybrid LABEL runs only phase 13 (after the single-card hybrid's
+cold and cached solves and the mode="cpu" objective of phase 5) and prints
+its numbers as one line "SHARDED_HYBRID LABEL {...}".
 
 --commit-keys LABEL runs only phase 12's fused commit check and timings
 on the headline's first two sharded rounds and prints them as one line
@@ -645,21 +688,25 @@ def _check_ties(rng, st, dtype, keys, dev):
     return int(out_k[2][0])
 
 
-def _k2_bound(ids, tgt, bid, prices, owner, sigma, reps):
-    """K2's bound on one round's bids (each input read once: ids, tgt, bid
-    and, per distinct column bid on, its key, price and owner; each output
-    written once: stay, evicted, the changed table entries, counts), and
+def _k2_bound(ids, tgt, bid, prices, owner, sigma, reps, **kw):
+    """K2's bound on one round's bids (each input read once: tgt for
+    every entry, ids and bid for the entries that bid (tgt < m: the
+    kernel reads no other's) and, per distinct column bid on, its key,
+    price and owner; each output written once: stay and evicted for every
+    entry, the changed table entries, counts), and
     the one PyTorch call that computes K2's resolve, scatter_reduce_ amax
-    on the 64-bit (bid, ~row) keys, timed."""
+    on the 64-bit (bid, ~row) keys, timed.  ``kw``: the gathered commit's
+    row_offset and n_rows."""
     m = prices.shape[0]
     C = ids.shape[0]
     p2, o2, s2 = prices.clone(), owner.clone(), sigma.clone()
-    commit_plain(ids, tgt, bid, p2, o2, s2)
+    commit_plain(ids, tgt, bid, p2, o2, s2, **kw)
     bidding = tgt < m
+    bids = int(bidding.sum())
     U = torch.unique(tgt[bidding]).numel()
     changed = int((p2.view(torch.int32) != prices.view(torch.int32)).sum()
                   + (o2 != owner).sum() + (s2 != sigma).sum())
-    bound = _bound(20 * C + 20 * U + 4 * changed + 12, int(bidding.sum()))
+    bound = _bound(12 * C + 8 * bids + 20 * U + 4 * changed + 12, bids)
     # (order bits - 2^31) * 2^32 + (2^32 - 1 - row): signed int64 order ==
     # the kernel's unsigned key order
     b = torch.where(bid == 0, torch.zeros_like(bid), bid)
@@ -1026,7 +1073,10 @@ def phase_headline(solver, loc, vv, inp):
     log(f"[5 headline] launches during the cold solve: ladder "
         f"{launches['ladder']} (one per phase), K1 {k12[0]}, K2 {k12[1]}")
     _feasibility_seed(solver.problem_spec)
-    return launches, cold["meta"]["its"]
+    head5 = dict(obj_cpu=cpu["meta"]["obj"], cached_s=warm_s,
+                 device_time=warm["meta"]["device_time"],
+                 its=warm["meta"]["its"])
+    return launches, cold["meta"]["its"], head5
 
 
 def _feasibility_seed(prob) -> None:
@@ -2833,30 +2883,43 @@ def _sharded_cases():
 
 
 def _meta_keys(meta):
-    return {k: meta[k] for k in ("its", "phases", "unassigned", "final_eps",
-                                 "obj", "soln_found")}
+    """The meta a card solve and its CPU mesh must share: every solve's
+    counts and objective, and the sharded hybrid's round histogram, host
+    bids, rebuilds and comm bytes."""
+    keys = ("its", "phases", "unassigned", "final_eps", "obj", "soln_found",
+            "tier_rounds", "host_bids", "ladder_rebuilds",
+            "comm_bytes_total", "comm_bytes_fullwidth_equiv")
+    return {k: meta[k] for k in keys if k in meta}
 
 
-def sharded_cpu(path: str, overlapped: bool = False) -> None:
+def sharded_cpu(path: str, kind: str = "sharded") -> None:
     """--sharded-cpu PATH: phase 11's solves on CPU meshes of 4 and 2 (the
-    kernels' plain versions, resolve_bids and the pmax/pmin combine);
-    --overlapped-cpu PATH: phase 12's overlapped solve on a CPU mesh of 4;
-    saved to PATH (npz) for the card run to compare with."""
+    kernels' plain versions and the key-table combine); --overlapped-cpu
+    PATH: phase 12's overlapped solve on a CPU mesh of 4;
+    --sharded-hybrid-cpu PATH: phase 13's 5k sharded hybrid solves (on a
+    CPU mesh of 4, and AuctionSolver with device='cpu'); saved to PATH
+    (npz) for the card run to compare with."""
     out = {}
-    cases = _overlapped_cases() if overlapped else _sharded_cases()
-    solve = (PP.auction_solve_overlapped if overlapped
-             else PP.auction_solve_sharded)
-    for name, ((loc, val, shape), kw, shards) in cases.items():
-        mesh = PP.make_mesh([torch.device("cpu")] * shards)
+    cases = {"sharded": _sharded_cases, "overlapped": _overlapped_cases,
+             "sharded_hybrid": _hybrid_cases}[kind]()
+    phase = {"sharded": 11, "overlapped": 12, "sharded_hybrid": 13}[kind]
+    for name, (inst, kw, shards) in cases.items():
         t0 = time.perf_counter()
-        res = solve(loc=loc, val=val, shape=shape, mesh=mesh, **kw)
+        if kind == "sharded_hybrid":
+            res = _hybrid_solve(inst, kw, shards, "cpu")
+        else:
+            loc, val, shape = inst
+            solve = (PP.auction_solve_overlapped if kind == "overlapped"
+                     else PP.auction_solve_sharded)
+            res = solve(loc=loc, val=val, shape=shape, mesh=PP.make_mesh(
+                [torch.device("cpu")] * shards), **kw)
         secs = time.perf_counter() - t0
         out[name + "_sol"] = res["sol"]
         out[name + "_prices"] = res["prices"]
         out[name + "_meta"] = np.array(json.dumps(
             dict(_meta_keys(res["meta"]), seconds=secs)))
-        log(f"[{12 if overlapped else 11} cpu] {name} on {shards} CPU "
-            f"shards: {secs:.1f} s, its {res['meta']['its']}")
+        log(f"[{phase} cpu] {name} on {shards or 1} CPU shard(s): "
+            f"{secs:.1f} s, its {res['meta']['its']}")
     np.savez(path, **out)
 
 
@@ -3258,7 +3321,7 @@ def _overlapped_parity():
     return results, launches
 
 
-def _launch_two_process(args, timeout=360):
+def _launch_two_process(args, timeout=360, backend="overlapped"):
     """parallel/multiproc.py with two workers on the one card over Gloo
     (NCCL refuses two ranks on one card), a shard each, worker 0's
     solution saved; returns (report, solution, seconds with start-up)."""
@@ -3269,7 +3332,7 @@ def _launch_two_process(args, timeout=360):
         t0 = time.perf_counter()
         run = subprocess.run(
             [sys.executable, "-m", "sslap_tpu_torch.parallel.multiproc",
-             "--backend", "overlapped", "--nproc", "2", "--local-devices",
+             "--backend", backend, "--nproc", "2", "--local-devices",
              "1", "--device", DEVICE, "--dist-backend", "gloo",
              "--timeout", str(timeout - 60), "--out", path, *args],
             capture_output=True, text=True, timeout=timeout, cwd=root)
@@ -3354,6 +3417,365 @@ def _two_process(dev):
     return dict(n=MP_N, rounds=rep["rounds"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharded hybrid (parallel/sharded_compact.py)
+# ---------------------------------------------------------------------------
+
+
+HYBRID_TRUNC = 32             # phase 13: the 5k solves' truncation
+
+
+def _contested_instance(n, C, seed=0):
+    """The reference's contested instance (its tests' builder, in bulk):
+    rows 0..C-1 bid on a dense C x C block, so the active rows crowd into
+    the first shard, whose balanced ladder buffer overflows; the other
+    rows hold their diagonal alone.  Costs in [1, 100), float32."""
+    val = np.random.default_rng(seed).integers(1, 100, C * C + n - C)
+    loc = np.stack([np.r_[np.repeat(np.arange(C), C), np.arange(C, n)],
+                    np.r_[np.tile(np.arange(C), C), np.arange(C, n)]], 1)
+    return loc, val.astype(np.float32), (n, n)
+
+
+def _hybrid_cases():
+    """Phase 13's 5k solves against the CPU: (instance, kwargs, shards);
+    shards 0 is AuctionSolver(mode='sharded_hybrid') on its device alone
+    (the reference's default trunc), the others the solve on a mesh of 4
+    at trunc = HYBRID_TRUNC, plain and balanced, and balanced on the
+    contested instance (n = 5000, a 128-row block), where the buffers
+    overflow and local rebuilds readmit the waiting rows."""
+    inst, _, _ = _sharded_cases()["square_f32"]
+    balanced = dict(trunc=HYBRID_TRUNC, ladder_balance=True,
+                    balance_floor=16)
+    return {"solver": (inst, {}, 0),
+            "trunc32": (inst, dict(trunc=HYBRID_TRUNC), 4),
+            "trunc32_balanced": (inst, balanced, 4),
+            "contested_balanced": (_contested_instance(5000, 128), balanced,
+                                   4)}
+
+
+def _hybrid_solve(inst, kw, shards, device):
+    loc, val, shape = inst
+    if shards == 0:
+        return AuctionSolver(loc=loc, val=val, shape=shape,
+                             mode="sharded_hybrid", device=device).solve()
+    return PP.auction_solve_sharded_hybrid(
+        loc=loc, val=val, shape=shape,
+        mesh=PP.make_mesh([torch.device(device)] * shards), **kw)
+
+
+def _zero_counts() -> None:
+    bid_topk.launches = commit.launches = 0
+    resolve.launches = commit_keys.launches = 0
+
+
+def _counts() -> dict:
+    return dict(bid_topk=bid_topk.launches, commit=commit.launches,
+                resolve=resolve.launches, commit_keys=commit_keys.launches)
+
+
+def _expected_counts(meta, shards) -> dict:
+    """Launches a sharded hybrid solve must make: per shard K1 once a
+    round, K2's resolve launch alone and the fused commit once a
+    full-width round (the fused commit also once a phase for the
+    overlapped regime's drain), K2 once a compact exchange round."""
+    tr = meta["tier_rounds"]
+    full = tr[0] + tr[1]
+    drain = meta["phases"] if meta["overlap"] else 0
+    return dict(bid_topk=shards * meta["its"], commit=shards * sum(tr[2:]),
+                resolve=shards * full, commit_keys=shards * (full + drain))
+
+
+def _hybrid_run(prob, shards, obj_cpu, tag, **kw):
+    """auction_solve_sharded_hybrid on the headline over [cuda] * shards,
+    the counts zeroed just before it and read just after (its HK check
+    is phase 5's); soln_found, |obj - obj_cpu| <= n * eps_min and the
+    launches checked.  Returns (result, seconds, launches)."""
+    mesh = PP.make_mesh([torch.device(DEVICE)] * shards)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = PP.auction_solve_sharded_hybrid(prob, mesh=mesh,
+                                          cardinality_check=False, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts()
+    mt = res["meta"]
+    gap = abs(mt["obj"] - obj_cpu) if mt["soln_found"] else float("inf")
+    bound = prob.n * mt["final_eps"]
+    log(f"[13 sharded hybrid] {tag}, {shards} shard(s) {kw}: "
+        f"{secs:.3f} s; device {mt['device_time']:.3f} s "
+        f"({1e3 * mt['device_time'] / mt['its']:.4f} ms a round), host GS "
+        f"{mt['host_gs_time']:.3f} s, host bids {mt['host_bids']}; its "
+        f"{mt['its']}, phases {mt['phases']}, tier_rounds "
+        f"{mt['tier_rounds']} (tiers {mt['tier_capacities'][2:]}); "
+        f"comm bytes {mt['comm_bytes_total']} against "
+        f"{mt['comm_bytes_fullwidth_equiv']} full width; |obj - obj_cpu| "
+        f"{gap!r} <= n * eps_min {bound!r}: {gap <= bound}; launches {got}")
+    if not (mt["soln_found"] and gap <= bound):
+        raise AssertionError(f"sharded hybrid {tag} on {shards} shards: "
+                             f"objective off")
+    want = _expected_counts(mt, shards)
+    if got != want or not all(got.values()):
+        raise AssertionError(f"sharded hybrid {tag} on {shards} shards: "
+                             f"launches {got}, want {want}")
+    return res, secs, got
+
+
+def _gathered_check(captured, n_glob, reps=20):
+    """(a) K2 over the gathered set against its plain version, exact
+    (stay, evicted, counts, prices bits, owner, the shard's sigma, the key
+    table zeroed): the four-shard headline's first compact exchange round
+    as shards 0 and 2 committed it (``captured``: row offset -> its
+    arguments), in float32 and in int32 (bids and prices rounded).  The
+    float32 shard-0 commit timed as phase 3 times K2, beside its byte
+    bound and scatter_reduce_ amax of the keys."""
+    offs = sorted(captured)
+    out = {}
+    for dtype in (torch.float32, torch.int32):
+        for off in (offs[0], offs[2]):
+            ids, tgt, bid, prices, owner, sigma = captured[off]
+            if dtype == torch.int32:
+                bid = torch.round(bid).to(torch.int32)
+                prices = torch.round(prices).to(torch.int32)
+            m = prices.shape[0]
+            keys = torch.zeros(m, dtype=torch.int64, device=ids.device)
+            state = lambda: [prices.clone(), owner.clone(),  # noqa: E731
+                             sigma.clone()]
+            got, want = state(), state()
+            kw = dict(row_offset=off, n_rows=n_glob)
+            out_k = commit(ids, tgt, bid, *got, keys, **kw)
+            out_t = commit_plain(ids, tgt, bid, *want, **kw)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, b) for a, b in zip(out_k, out_t))
+                    and all(_same_bits(a, b) for a, b in zip(got, want))
+                    and int(keys.count_nonzero()) == 0):
+                raise AssertionError(f"gathered commit != plain ({dtype}, "
+                                     f"row offset {off})")
+            won, ev, stayed = out_k[2].tolist()
+            log(f"[13 sharded hybrid] (a) K2 over the gathered set, "
+                f"{ids.shape[0]} entries ({int((tgt < m).sum())} bids: "
+                f"{won} won, {ev} evicted, {stayed} stayed), {dtype}, row "
+                f"offset {off}: exact")
+            if dtype != torch.float32 or off != offs[0]:
+                continue
+            run = lambda p, o, s: commit(  # noqa: E731
+                ids, tgt, bid, p, o, s, keys, **kw)
+            bound, lib_ms = _k2_bound(ids, tgt, bid, prices, owner, sigma,
+                                      reps, **kw)
+            out = dict(
+                entries=int(ids.shape[0]), bids=int((tgt < m).sum()),
+                won=won, max_abs_err=_abs_err(got[0], want[0]),
+                ms=_median_ms(state, run, reps),
+                ms_device=_device_ms(state, run, reps),
+                plain_ms=_median_ms(state, lambda p, o, s: commit_plain(
+                    ids, tgt, bid, p, o, s, **kw), reps),
+                library_ms=lib_ms, **bound)
+            log(f"[13 sharded hybrid] (a) gathered K2, float32, shard 0: "
+                f"{out['ms']:.4f} ms (back to back {out['ms_device']:.4f}), "
+                f"plain {out['plain_ms']:.4f} ms, scatter_reduce_ amax "
+                f"{lib_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+                f"({out['bound_bytes']} bytes; "
+                f"{out['bound_ms'] / out['ms_device']:.1%} back to back)")
+    return out
+
+
+def _hybrid_headline(prob, head5):
+    """(b) the headline on [cuda] and [cuda] * 4, complete, equal bit for
+    bit (sol, prices, its, phases, host bids); the four-shard run's first
+    gathered commit of shards 0 and 2 kept for (a); (c) overlap=True on
+    [cuda] * 4 against (b)'s rounds; a profiler window over the
+    four-shard device pass's first HYBRID_PROFILE_ROUNDS rounds."""
+    from sslap_tpu_torch.parallel import sharded_compact as SC
+    obj_cpu = head5["obj_cpu"]
+    runs, launches, captured, n_rows = {}, {}, {}, []
+    real = SC.commit
+
+    def first_commit(*a):
+        # a[7], a[8]: the shard's row offset and the padded row count;
+        # the arguments before the commit
+        if a[7] not in captured:
+            captured[a[7]] = [x.clone() for x in a[:6]]
+            n_rows[:] = [a[8]]
+        return real(*a)
+
+    for shards in (1, 4):
+        SC.commit = first_commit if shards == 4 else real
+        try:
+            runs[shards] = _hybrid_run(prob, shards, obj_cpu, "headline")
+        finally:
+            SC.commit = real
+        launches[f"headline_{shards}"] = runs[shards][2]
+    a, b = runs[1][0], runs[4][0]
+    same = (np.array_equal(a["sol"], b["sol"])
+            and np.array_equal(a["prices"].view(np.int32),
+                               b["prices"].view(np.int32))
+            and all(a["meta"][k] == b["meta"][k]
+                    for k in ("its", "phases", "host_bids", "obj")))
+    log(f"[13 sharded hybrid] (b) headline, 1 shard == 4 shards (sol, "
+        f"prices bits, its, phases, host bids, obj): {same}; the single-"
+        f"card hybrid (phase 5, cached): {head5['cached_s']:.3f} s, device "
+        f"{head5['device_time']:.3f} s for {head5['its']} rounds")
+    if not same:
+        raise AssertionError("sharded hybrid headline: 1 shard != 4 shards")
+    gathered = _gathered_check(captured, n_rows[0])
+    ov, secs, launches["overlap_4"] = _hybrid_run(prob, 4, obj_cpu,
+                                                  "headline", overlap=True)
+    log(f"[13 sharded hybrid] (c) overlap on 4 shards: its "
+        f"{ov['meta']['its']} against {b['meta']['its']} synchronous, "
+        f"tier_rounds {ov['meta']['tier_rounds']} against "
+        f"{b['meta']['tier_rounds']}")
+    profile = _profile_hybrid(prob)
+    summary = {f"{k}_{s}": runs[s][0]["meta"][k] for s in (1, 4) for k in (
+        "its", "phases", "tier_rounds", "host_bids", "device_time",
+        "host_gs_time", "comm_bytes_total", "comm_bytes_fullwidth_equiv")}
+    summary.update({f"seconds_{s}": runs[s][1] for s in (1, 4)},
+                   overlap_its=ov["meta"]["its"], overlap_seconds=secs,
+                   overlap_tier_rounds=ov["meta"]["tier_rounds"],
+                   overlap_device_time=ov["meta"]["device_time"],
+                   hybrid_cached_s=head5["cached_s"], profile=profile)
+    return launches, gathered, summary
+
+
+HYBRID_PROFILE_ROUNDS = 600   # phase 13: device-pass rounds under the
+                              # profiler (phase 1's full-width and
+                              # compact rounds)
+
+
+def _profile_hybrid(prob, shards=4):
+    """torch.profiler over the sharded hybrid's device pass on the headline
+    (``sharded_compact.solve_sharded_tiered`` set up by the solve's own
+    ``prepare_sharded_tiered`` at its defaults, capped at
+    HYBRID_PROFILE_ROUNDS rounds, no host tail) on [cuda] * shards: K1's,
+    K2's (both launches, and the resolve launch alone), the fused
+    commit's and the torch ops' device time, and the idle share of the
+    window."""
+    from torch.profiler import ProfilerActivity, profile
+    from sslap_tpu_torch.parallel import sharded_compact as SC
+    su = SC.prepare_sharded_tiered(prob, shards,
+                                   max_iter=HYBRID_PROFILE_ROUNDS)
+    mesh = PP.make_mesh([torch.device(DEVICE)] * shards)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res, tier_rounds = SC.solve_sharded_tiered(*su.args, mesh=mesh,
+                                                   **su.kw)
+        torch.cuda.synchronize()
+        window = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+
+    def device_ms(pred):
+        return 1e-3 * sum(e.self_device_time_total for e in events
+                          if pred(e.key))
+
+    k1 = device_ms(lambda k: "bid_kernel<" in k and "dense" not in k)
+    k2 = device_ms(lambda k: "resolve_kernel<" in k or
+                   "commit_kernel<" in k)
+    kc = device_ms(lambda k: "commit_keys_kernel<" in k)
+    busy = device_ms(lambda k: True)
+    out = dict(shards=shards, rounds=res.rounds, tier_rounds=tier_rounds,
+               window_ms=window, round_ms=window / res.rounds, k1_ms=k1,
+               k2_ms=k2, commit_keys_ms=kc, torch_ops_ms=busy - k1 - k2 - kc,
+               idle_share=1 - busy / window)
+    log(f"[13 sharded hybrid] profiler, {shards} shards, the device pass's "
+        f"first {res.rounds} rounds (tier_rounds {tier_rounds}): window "
+        f"{window:.1f} ms ({out['round_ms']:.3f} ms a round); device K1 "
+        f"{k1:.2f} ms, K2 {k2:.2f} ms, fused commit {kc:.2f} ms, torch ops "
+        f"{out['torch_ops_ms']:.2f} ms; idle share {out['idle_share']:.3f}")
+    return out
+
+
+def _hybrid_parity(dev):
+    """(d) the 5k solves on the card (AuctionSolver(mode='sharded_hybrid',
+    device='cuda'); the solve on [cuda] * 4 at trunc = HYBRID_TRUNC, plain
+    and balanced, and balanced on the contested instance, which must
+    rebuild), each with its launches checked.  Returns (the results, the
+    launches)."""
+    results, launches = {}, {}
+    for name, (inst, kw, shards) in _hybrid_cases().items():
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = _hybrid_solve(inst, kw, shards, DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mt = res["meta"]
+        launches[name] = _counts()
+        log(f"[13 sharded hybrid] (d) {name} {inst[2]} {kw}: CUDA "
+            f"({mt['n_shards']} shard(s)) {secs:.3f} s, its {mt['its']}, "
+            f"tier_rounds {mt['tier_rounds']}, host bids {mt['host_bids']}, "
+            f"rebuilds {mt['ladder_rebuilds']}, soln_found "
+            f"{mt['soln_found']}; launches {launches[name]}")
+        if launches[name] != _expected_counts(mt, mt["n_shards"]) or \
+                not mt["soln_found"]:
+            raise AssertionError(f"sharded hybrid {name}: launches or "
+                                 f"solution")
+        if name == "contested_balanced" and mt["ladder_rebuilds"] < 1:
+            raise AssertionError("the contested balanced run rebuilt no "
+                                 "buffer")
+        results[name] = res
+    return results, launches
+
+
+def _two_process_hybrid(dev):
+    """(e) the sharded hybrid end to end in two processes on the one card
+    (multiproc --backend sharded_hybrid over Gloo, a shard each, n =
+    MP_N): its compact rounds all-gather across the processes, and each
+    process runs the host GS tail; equal bit for bit to the one-process
+    solve on [cuda] * 2 (sol, prices, its, phases, final eps, tier_rounds,
+    host bids) and to scipy's objective."""
+    rep, got, secs = _launch_two_process(["--n", str(MP_N)],
+                                         backend="sharded_hybrid")
+    loc, val = MP.build_instance(MP_N, 8, 0)
+    _zero_counts()
+    one = PP.auction_solve_sharded_hybrid(loc=loc, val=val,
+                                          shape=(MP_N, MP_N),
+                                          mesh=PP.make_mesh([dev] * 2))
+    one_launches = _counts()
+    mt = one["meta"]
+    same = (np.array_equal(got["sol"], one["sol"])
+            and got["prices"].tobytes() == one["prices"].tobytes()
+            and (int(got["its"]), int(got["phases"]),
+                 float(got["final_eps"]), list(got["tier_rounds"]),
+                 int(got["host_bids"]))
+            == (mt["its"], mt["phases"], mt["final_eps"], mt["tier_rounds"],
+                mt["host_bids"]))
+    log(f"[13 sharded hybrid] (e) two processes x 1 shard on the card "
+        f"(Gloo), n = {MP_N}: {secs:.1f} s with start-up, solve "
+        f"{rep['solve_s']:.3f} s, {rep['rounds']} rounds, tier_rounds "
+        f"{rep['tier_rounds']}; == one process on [cuda] * 2 (sol, prices "
+        f"bits, its, phases, final_eps, tier_rounds, host bids): {same}; "
+        f"obj {rep['obj']!r} == scipy {rep['scipy_obj']!r}: {rep['ok']}; "
+        f"worker 0's launches {rep['launches']}, one process's "
+        f"{one_launches}")
+    if not (same and rep["ok"]) or rep["launches"] != _expected_counts(
+            dict(mt, its=rep["rounds"]), 1):
+        raise AssertionError("two-process sharded hybrid != one process")
+    return dict(n=MP_N, rounds=rep["rounds"], solve_s=rep["solve_s"],
+                launches=rep["launches"], one_process_launches=one_launches)
+
+
+def phase_sharded_hybrid(prob, head5):
+    """Phase 13: (a)-(e) above; the CPU meshes of (d) in a child process
+    (--sharded-hybrid-cpu) started at the phase's start.  Returns the
+    kernels-line numbers: launches per run, (a)'s numbers and the
+    headline's summary."""
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    with cpu_child("--sharded-hybrid-cpu") as (child, path):
+        launches, gathered, summary = _hybrid_headline(prob, head5)
+        results, solver_launches = _hybrid_parity(dev)
+        launches.update(solver_launches)
+        two = _two_process_hybrid(dev)
+        launches["two_process_worker0"] = two["launches"]
+        t0 = time.perf_counter()
+        _same_as_cpu_mesh(results, _child_result(
+            child, path, "--sharded-hybrid-cpu"), tag="[13 sharded hybrid]")
+    log(f"[13 sharded hybrid] phase 13 in {time.perf_counter() - t_phase:.1f}"
+        f" s ({time.perf_counter() - t0:.1f} s waiting for the CPU meshes)")
+    summary["two_process"] = two
+    return launches, gathered, summary
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -3362,7 +3784,7 @@ def main() -> None:
     inp = headline_inputs(solver)
     ladder = phase_ladder(inp)
     phase_parity()
-    launches, cold_its = phase_headline(solver, loc, vv, inp)
+    launches, cold_its, head5 = phase_headline(solver, loc, vv, inp)
     head = solver.problem_spec
     del solver
     k3 = phase_gs(inp, cold_its)
@@ -3372,12 +3794,14 @@ def main() -> None:
     probes = phase_probes()
     dk, k1b, k2b, prof, hy_launches, dev_launches = phase_batch()
     sh_launches, sh_prof, sh_resolve, ov = phases_sharded(head)
+    hy_runs, gathered, hy_summary = phase_sharded_hybrid(head, head5)
     del head
     # the batched paths of K1 (mode='device') and K2 (both batched modes),
     # and each one's device time in one mode='device' call (profiler)
     # and the sharded and overlapped paths' launches (phases 11 and 12: K1,
     # and K2's resolve launch alone), with the profiler split of 4 shards
-    # on the headline
+    # on the headline, and the sharded hybrid's (phase 13: K1, K2 over
+    # the gathered sets and its resolve launch alone), with (a)'s numbers
     ov_launches = dict(ov["launches"], **ov["solver_launches"])
     batched = {
         "bid_topk": dict(batched_launches=dev_launches["bid_topk_batched"],
@@ -3387,6 +3811,8 @@ def main() -> None:
                                            sh_launches.items()},
                          overlapped_launches={k: v["bid_topk"] for k, v in
                                               ov_launches.items()},
+                         sharded_hybrid_launches={
+                             k: v["bid_topk"] for k, v in hy_runs.items()},
                          sharded_profile=sh_prof),
         "commit": dict(batched_launches={
             "hybrid": hy_launches["commit"],
@@ -3397,6 +3823,10 @@ def main() -> None:
                               sh_launches.items()},
             overlapped_launches={k: v["commit"] for k, v in
                                  ov_launches.items()},
+            sharded_hybrid_launches={
+                k: {"commit": v["commit"], "resolve": v["resolve"]}
+                for k, v in hy_runs.items()},
+            **{f"gathered_{k}": v for k, v in gathered.items()},
             sharded_resolve=sh_resolve),
     }
     kernels = []
@@ -3438,7 +3868,10 @@ def main() -> None:
         overlapped_profile=ov["profile"], breakdown=ov["breakdown"],
         two_process=ov["two_process"],
         two_process_headline=ov["two_process_headline"],
-        overlapped_round_ms={s: ov[f"round_ms_{s}"] for s in (1, 4)}))
+        overlapped_round_ms={s: ov[f"round_ms_{s}"] for s in (1, 4)},
+        sharded_hybrid_launches={k: hy_runs[k]["commit_keys"] for k in
+                                 ("headline_1", "headline_4")},
+        sharded_hybrid=hy_summary))
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3514,6 +3947,33 @@ def commit_keys_timing(label: str) -> None:
          **_commit_keys_check(head, _sharded_inputs(head))}), flush=True)
 
 
+def sharded_hybrid_timing(label: str) -> None:
+    """--sharded-hybrid LABEL: phase 13 alone (with the single-card
+    hybrid's cached solve and the mode='cpu' objective it is held to,
+    as phase 5 gives them), printed as one line "SHARDED_HYBRID LABEL
+    {...}" (numbers unrounded)."""
+    phase_device()
+    phase_build()
+    solver, loc, vv = headline_solver()
+    n = solver.problem_spec.n
+    solver.solve()
+    t0 = time.perf_counter()
+    warm = solver.solve()
+    cached_s = time.perf_counter() - t0
+    cpu = AuctionSolver(loc=loc, val=vv, shape=(n, n), mode="cpu",
+                        cardinality_check=False).solve()
+    head5 = dict(obj_cpu=cpu["meta"]["obj"], cached_s=cached_s,
+                 device_time=warm["meta"]["device_time"],
+                 its=warm["meta"]["its"])
+    head = solver.problem_spec
+    del solver
+    launches, gathered, summary = phase_sharded_hybrid(head, head5)
+    print("SHARDED_HYBRID", label, json.dumps(
+        {"tree": os.path.dirname(os.path.abspath(__file__)),
+         "launches": launches, "gathered": gathered, **summary}),
+        flush=True)
+
+
 def probes(label: str) -> None:
     """--probes LABEL: phase 9's timings alone
     (probe_timings), each kernel checked on the way, printed as one line
@@ -3532,11 +3992,15 @@ if __name__ == "__main__":
         k12(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--k3":
         k3(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--sharded-hybrid":
+        sharded_hybrid_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--commit-keys":
         commit_keys_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-cpu":
         sharded_cpu(sys.argv[2])
     elif len(sys.argv) > 2 and sys.argv[1] == "--overlapped-cpu":
-        sharded_cpu(sys.argv[2], overlapped=True)
+        sharded_cpu(sys.argv[2], "overlapped")
+    elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-hybrid-cpu":
+        sharded_cpu(sys.argv[2], "sharded_hybrid")
     else:
         main()

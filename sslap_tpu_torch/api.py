@@ -8,8 +8,10 @@ device rounds + native GS tail through the batched dense engine, picked by
 engine='auto' for dense-dominated square instances), and 'sharded' and
 'overlapped' (the row-sharded Jacobi solves of ``parallel/sharded.py``
 and ``parallel/overlap.py`` over every local CUDA device, or over
-``device`` when the caller names one or the CPU).  The 'sharded_hybrid'
-mode and the 'candidates' engine raise NotImplementedError (ROADMAP.md).
+``device`` when the caller names one or the CPU), and 'sharded_hybrid'
+(the row-sharded tiered solve of ``parallel/sharded_compact.py`` with its
+host GS tail, over the same mesh).  The 'candidates' engine raises
+NotImplementedError (ROADMAP.md).
 
 Returns a dict-like ``AuctionSolution`` with 'sol' (row -> col), 'meta'
 (objective, rounds, phases, final eps, solution-found flag, timing) and
@@ -129,9 +131,6 @@ class AuctionSolver:
             raise ValueError(f"unknown gs_engine {kw['gs_engine']!r}")
         if kw["mode"] not in MODES:
             raise ValueError(f"unknown mode {kw['mode']!r}")
-        if kw["mode"] not in ("auto", "device", "hybrid", "cpu", "sharded",
-                              "overlapped"):
-            raise _not_ported(f"mode={kw['mode']!r}")
         if kw["engine"] not in ENGINES:
             raise ValueError(f"unknown engine {kw['engine']!r}")
         if kw["engine"] == "candidates":
@@ -172,7 +171,8 @@ class AuctionSolver:
         prob = self.problem_spec
         if prob.vals.dtype == np.float64:
             # float64 rides the host path, as in the reference
-            if self.mode in ("device", "hybrid", "sharded", "overlapped"):
+            if self.mode in ("device", "hybrid", "sharded", "overlapped",
+                             "sharded_hybrid"):
                 raise ValueError(
                     "float64 costs are solved on the native CPU path; use "
                     "mode='cpu' or 'auto'")
@@ -260,7 +260,7 @@ class AuctionSolver:
                 "(detected by Hopcroft-Karp cardinality check; pass "
                 "cardinality_check=False to attempt anyway)")
         mode = self._resolve_mode()
-        if mode in ("sharded", "overlapped"):
+        if mode in ("sharded", "overlapped", "sharded_hybrid"):
             return self._solve_sharded(mode, warm_prices, warm_fr)
         if mode == "device":
             return self._solve_device(prob, warm_prices, t0)
@@ -292,27 +292,33 @@ class AuctionSolver:
 
     def _solve_sharded(self, mode: str, warm_prices,
                        warm_fr: int) -> AuctionSolution:
-        """mode='sharded' / 'overlapped': ``parallel.auction_solve_sharded``
-        / ``auction_solve_overlapped`` over every local CUDA device
+        """mode='sharded' / 'overlapped' / 'sharded_hybrid':
+        ``parallel.auction_solve_sharded`` / ``auction_solve_overlapped`` /
+        ``auction_solve_sharded_hybrid`` over every local CUDA device
         (``device="cuda"``), or over the one device named (``"cuda:1"``,
-        ``"cpu"``).  As in the reference, warm_mode='fr' does not apply
-        there; the port warns."""
+        ``"cpu"``).  As in the reference, warm_mode='fr' applies to
+        'sharded_hybrid' only (with ``wide_rounds``); elsewhere the port
+        warns."""
         from sslap_tpu_torch.parallel import auction_solve_overlapped, \
-            auction_solve_sharded, make_mesh
-        if warm_fr:
+            auction_solve_sharded, auction_solve_sharded_hybrid, make_mesh
+        extra = {}
+        if mode == "sharded_hybrid":
+            extra = dict(wide_rounds=self.wide_rounds, warm_fr=warm_fr)
+        elif warm_fr:
             warnings.warn(f"warm_mode='fr' does not apply to mode={mode!r} "
                           "(the raw warm prices are used)", stacklevel=3)
         dev = torch.device(self.device)
         mesh = make_mesh(None if dev.type == "cuda" and dev.index is None
                          else [dev])
         fn = {"sharded": auction_solve_sharded,
-              "overlapped": auction_solve_overlapped}[mode]
+              "overlapped": auction_solve_overlapped,
+              "sharded_hybrid": auction_solve_sharded_hybrid}[mode]
         res = fn(
             self.problem_spec, problem=self.problem, mesh=mesh,
             eps_start=self.eps_start, eps_min=self.eps_min,
             theta=self.theta, theta_tail=self.theta_tail,
             tail_phases=self.tail_phases, max_iter=self.max_iter,
-            cardinality_check=False, warm_prices=warm_prices)
+            cardinality_check=False, warm_prices=warm_prices, **extra)
         self.prices = res["prices"]
         self.meta = res["meta"]
         return res

@@ -365,16 +365,17 @@ def jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
     exactly the rows ``compute_bids`` leaves unmasked), then K2 resolves
     and commits.  ``vals_m``: values with padding = neg sentinel.
     ``prices``, ``owner`` and ``sigma`` are updated IN PLACE and returned;
-    ``keys`` is K2's [m] scratch on CUDA (all zero on entry and exit).
+    ``keys`` is K2's [m] int64 scratch (all zero on entry and exit).
 
     With ``combine`` the rows are one shard (global ids ``row_offset`` +
-    local id): the shard resolves its bids under global ids, ``combine``
-    merges the shards' per-column results, and every shard applies the
-    same commit to its replicas.  On the CPU that is ``resolve_bids``,
-    ``combine(best, winner)`` and ``commit_bids``; on CUDA, K2's resolve
-    launch alone into ``keys``, ``combine.keys(keys)`` (one max of the
-    shards' key tables, left in ``keys``) and the fused key commit
-    (``ops.commit.commit_keys``: decode, commit, ``keys`` zeroed)."""
+    local id): K2's resolve launch alone folds the shard's bids into
+    ``keys`` (allocated here when None) under global ids,
+    ``combine.keys(keys)`` leaves the max of the shards' key tables in
+    it, and the fused key commit (``ops.commit.commit_keys``: decode,
+    commit, ``keys`` zeroed) applies the same commit to every shard's
+    replicas; on the CPU each is its kernel's plain version.  This equals
+    ``resolve_bids``, the reference's pmax/pmin combine and
+    ``commit_bids``, the tests' oracle."""
     from sslap_tpu_torch.ops import bid_topk, commit
     from sslap_tpu_torch.ops.commit import commit_keys, resolve
     n = sigma.shape[0]
@@ -385,16 +386,11 @@ def jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
     if combine is None:
         commit(ids, tgt, bid, prices, owner, sigma, keys)
         return prices, owner, sigma
-    gids = ids + row_offset          # pads (tgt == m) resolve nowhere
-    if keys is not None:
-        resolve(gids, tgt, bid, keys)
-        commit_keys(combine.keys(keys), prices, owner, sigma, row_offset)
-        return prices, owner, sigma
-    best, winner = combine(*resolve_bids(tgt, bid, prices.shape[0], gids))
-    p, o, s = commit_bids(best, winner, prices, owner, sigma, row_offset)
-    prices.copy_(p)
-    owner.copy_(o)
-    sigma.copy_(s)
+    if keys is None:
+        keys = torch.zeros(prices.shape[0], dtype=torch.int64,
+                           device=prices.device)
+    resolve(ids + row_offset, tgt, bid, keys)   # pads (tgt == m): nowhere
+    commit_keys(combine.keys(keys), prices, owner, sigma, row_offset)
     return prices, owner, sigma
 
 
@@ -530,8 +526,7 @@ def solve_ell(cols, vals_t, valid, nvalid, p0, eps0, eps_min, theta,
     device = p0.device
     bigp = dt(value_bigp(vals_t, valid) if bigp is None else bigp)
     vals_m = mask_vals(vals_t, valid)
-    keys = (torch.zeros(m, dtype=torch.int64, device=device)
-            if device.type == "cuda" else None)
+    keys = torch.zeros(m, dtype=torch.int64, device=device)
     prices = p0.to(dtype, copy=True)
     owner = torch.full((m,), -1, dtype=torch.int32, device=device)
     sigma = torch.full((n,), -1, dtype=torch.int32, device=device)

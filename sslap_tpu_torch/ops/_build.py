@@ -73,9 +73,10 @@ def _declare(lib: ctypes.CDLL) -> None:
                        i32, ctypes.c_int, p, p, p, p]
         fn = getattr(lib, f"sslap_commit_{suffix}")
         fn.restype = ctypes.c_int
-        # ids, tgt, bid, C, n, m, keys, prices, owner, sigma, stay,
-        # evicted, counts, stream
-        fn.argtypes = [p, p, p, i64, i32, i32, p, p, p, p, p, p, p, p]
+        # ids, tgt, bid, C, n_rows, m, keys, prices, owner, sigma,
+        # row_offset, n_local, stay, evicted, counts, stream
+        fn.argtypes = [p, p, p, i64, i32, i32, p, p, p, p, i32, i32, p, p,
+                       p, p]
         fn = getattr(lib, f"sslap_resolve_{suffix}")
         fn.restype = ctypes.c_int
         # ids, tgt, bid, C, m, keys, stream

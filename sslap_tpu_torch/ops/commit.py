@@ -9,7 +9,11 @@ The kernel is ``csrc/commit.cu``: two launches, a resolve (one 64-bit
 atomicMax on an order-preserving (bid, row) key per column a warp
 touches), then a commit; its note says what bounds it on the card.
 ``commit_plain`` is the same function as torch ops around
-``auction.resolve_bids`` (scatter-reduce amax, then amin).
+``auction.resolve_bids`` (scatter-reduce amax, then amin).  With a row
+offset, both commit the bids that every shard of the sharded hybrid
+all-gathered (``parallel/sharded_compact.py``): row ids are global, each
+shard keeps the same price and owner replicas, and its sigma holds only
+its own rows.
 
 ``resolve`` is the kernel's first launch alone, for the sharded and
 overlapped rounds (``parallel/``): a shard folds its bids into its [m]
@@ -51,15 +55,23 @@ from sslap_tpu_torch.ops import _build
 KEY_FLIP = -2 ** 63
 
 
-def commit_plain(ids, tgt, bid, prices, owner, sigma):
+def commit_plain(ids, tgt, bid, prices, owner, sigma, row_offset=0,
+                 n_rows=None):
     """Plain torch twin of the kernel; same arguments (less the kernel's
     ``keys`` scratch) and results.
 
-    ids [C] int32 (pad = n); tgt [C] int32 (m = no bid); bid [C].
+    ids [C] int32 global row ids (pad = n_rows); tgt [C] int32 (m = no
+    bid); bid [C].  ``sigma`` holds rows [row_offset, row_offset +
+    sigma.shape[0]) (all n rows by default): a row outside them is another
+    shard's, whose sigma is left alone (K2 over the bids every shard
+    all-gathered, ``parallel/sharded_compact.py``); ``n_rows`` (default
+    row_offset + sigma.shape[0]) is the pad value of the outputs.
     ``prices``, ``owner`` and ``sigma`` are updated IN PLACE.  Returns
-    (stay [C]: losing bidders, else n; evicted [C]: previous owners of won
-    columns, else n; counts [3] int32: won, evicted, stayed)."""
+    (stay [C]: losing bidders, else n_rows; evicted [C]: previous owners of
+    won columns, else n_rows; counts [3] int32: won, evicted, stayed), row
+    ids global."""
     n = sigma.shape[0]
+    n_rows = row_offset + n if n_rows is None else n_rows
     m = prices.shape[0]
     bidding = tgt < m
     _, winner = resolve_bids(tgt, bid, m, ids)
@@ -71,27 +83,32 @@ def commit_plain(ids, tgt, bid, prices, owner, sigma):
     # is never a bidder of this round.
     prices[wt] = bid[won]
     owner[wt] = ids[won]
-    sigma[ids[won].long()] = tgt[won]
-    sigma[prev[prev >= 0].long()] = -1
+    sig = torch.cat([sigma, sigma.new_full((1,), -1)])   # slot n: not ours
+    sig[_auction._local_rows(ids, won, row_offset, n)] = tgt
+    sig[_auction._local_rows(prev, prev >= 0, row_offset, n)] = -1
+    sigma.copy_(sig[:n])
     lost = bidding & ~won
-    stay = torch.where(lost, ids, n).to(torch.int32)
-    evicted = torch.where(prev >= 0, prev, n).to(torch.int32)
+    stay = torch.where(lost, ids, n_rows).to(torch.int32)
+    evicted = torch.where(prev >= 0, prev, n_rows).to(torch.int32)
     counts = torch.stack([won.sum(), (prev >= 0).sum(), lost.sum()])
     return stay, evicted, counts.to(torch.int32)
 
 
-def commit(ids, tgt, bid, prices, owner, sigma, keys=None):
+def commit(ids, tgt, bid, prices, owner, sigma, keys=None, row_offset=0,
+           n_rows=None):
     """K2: see ``commit_plain`` for the contract.  CUDA tensors launch
     ``csrc/commit.cu``; ``keys`` is its [m] int64 scratch, all zero on
     entry and left all zero (allocated here when not given)."""
     if ids.device.type == "cpu":
-        return commit_plain(ids, tgt, bid, prices, owner, sigma)
+        return commit_plain(ids, tgt, bid, prices, owner, sigma, row_offset,
+                            n_rows)
     if ids.device.type != "cuda":
         raise RuntimeError(f"commit: unsupported device {ids.device}")
     dtype = prices.dtype
     if dtype not in (torch.float32, torch.int32):
         raise TypeError(f"commit: unsupported dtype {dtype}")
     n = sigma.shape[0]
+    n_rows = row_offset + n if n_rows is None else n_rows
     m = prices.shape[0]
     C = ids.shape[0]
     if keys is None:
@@ -107,16 +124,18 @@ def commit(ids, tgt, bid, prices, owner, sigma, keys=None):
                              f"tensor of shape {shape} on {ids.device}")
     if not prices.is_contiguous() or prices.device != ids.device:
         raise ValueError("commit: prices must be contiguous on the device")
+    if row_offset < 0 or not row_offset + n <= n_rows < 2 ** 31:
+        raise ValueError("commit: the shard's rows must lie in [0, n_rows)")
     lib = _build.load()
     stay = torch.empty(C, dtype=torch.int32, device=ids.device)
     evicted = torch.empty(C, dtype=torch.int32, device=ids.device)
     counts = torch.empty(3, dtype=torch.int32, device=ids.device)
     fn = (lib.sslap_commit_f32 if dtype == torch.float32
           else lib.sslap_commit_i32)
-    err = fn(ids.data_ptr(), tgt.data_ptr(), bid.data_ptr(), C, n, m,
+    err = fn(ids.data_ptr(), tgt.data_ptr(), bid.data_ptr(), C, n_rows, m,
              keys.data_ptr(), prices.data_ptr(), owner.data_ptr(),
-             sigma.data_ptr(), stay.data_ptr(), evicted.data_ptr(),
-             counts.data_ptr(),
+             sigma.data_ptr(), int(row_offset), n, stay.data_ptr(),
+             evicted.data_ptr(), counts.data_ptr(),
              torch.cuda.current_stream(ids.device).cuda_stream)
     _build.check(err, "commit")
     commit.launches += 1

@@ -25,10 +25,15 @@
 //            so the [m] key table is all zero again after the round.
 //            counts = (won, evicted, stayed): each warp sums them with
 //            __reduce_add_sync, each block adds them once.
-// Outputs: stay (losers, else n), evicted (previous owners, else n).  The
+// Outputs: stay (losers, else n_rows), evicted (previous owners, else
+// n_rows).  Row ids are global: sigma holds rows [row_offset, row_offset +
+// n_local) (0 and n for one device; a shard's rows when every shard
+// commits the same all-gathered bids, parallel/sharded_compact.py), and a
+// sigma write of another shard's row is skipped.  The
 // eps-phase ladder (ladder.cu) runs round.cuh's bid_key and commit_bid in
 // its stages A and B; this standalone pair serves auction.jacobi_round,
-// the batched Jacobi solve and the dense engine; the resolve launch alone
+// the batched Jacobi solve, the dense engine and the sharded hybrid's
+// compact rounds (with the shard's row offset); the resolve launch alone
 // (sslap_resolve_*) serves the sharded and overlapped rounds, whose commit
 // is commit_keys_kernel below.  One cooperative launch
 // with a grid barrier between the passes was tried and lost: 6.5 us a
@@ -94,9 +99,10 @@ template <typename T>
 __global__ void __launch_bounds__(sslap::kBlock)
     commit_kernel(const int32_t* __restrict__ ids,
                   const int32_t* __restrict__ tgt,
-                  const T* __restrict__ bid, int64_t C, int32_t n, int32_t m,
-                  unsigned long long* keys, T* prices, int32_t* owner,
-                  int32_t* sigma, int32_t* __restrict__ stay,
+                  const T* __restrict__ bid, int64_t C, int32_t n_rows,
+                  int32_t m, unsigned long long* keys, T* prices,
+                  int32_t* owner, int32_t* sigma, int32_t row_offset,
+                  int32_t n_local, int32_t* __restrict__ stay,
                   int32_t* __restrict__ evicted, int32_t* counts) {
   __shared__ int s_counts[3];
   if (threadIdx.x < 3) s_counts[threadIdx.x] = 0;
@@ -106,11 +112,12 @@ __global__ void __launch_bounds__(sslap::kBlock)
   int won = 0, ev = 0, stayed = 0;
   if (i < C) {
     const int32_t j = __ldg(tgt + i);
-    int32_t s = n, e = n;
+    int32_t s = n_rows, e = n_rows;
     if (j < m) {
       bool w;
       const int32_t r = sslap::commit_bid(__ldg(ids + i), j, __ldg(bid + i),
-                                          keys, prices, owner, sigma, &w);
+                                          keys, prices, owner, sigma,
+                                          row_offset, n_local, &w);
       if (w) {
         won = 1;
         if (r >= 0) {
@@ -140,9 +147,11 @@ __global__ void __launch_bounds__(sslap::kBlock)
 
 template <typename T>
 int launch_commit(const int32_t* ids, const int32_t* tgt, const T* bid,
-                  int64_t C, int32_t n, int32_t m, unsigned long long* keys,
-                  T* prices, int32_t* owner, int32_t* sigma, int32_t* stay,
-                  int32_t* evicted, int32_t* counts, void* stream) {
+                  int64_t C, int32_t n_rows, int32_t m,
+                  unsigned long long* keys, T* prices, int32_t* owner,
+                  int32_t* sigma, int32_t row_offset, int32_t n_local,
+                  int32_t* stay, int32_t* evicted, int32_t* counts,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = C > 0 ? sslap::grid_for(C) : 1;
   resolve_kernel<T><<<grid, sslap::kBlock, 0, s>>>(ids, tgt, bid, C, m,
@@ -150,8 +159,8 @@ int launch_commit(const int32_t* ids, const int32_t* tgt, const T* bid,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   commit_kernel<T><<<grid, sslap::kBlock, 0, s>>>(
-      ids, tgt, bid, C, n, m, keys, prices, owner, sigma, stay, evicted,
-      counts);
+      ids, tgt, bid, C, n_rows, m, keys, prices, owner, sigma, row_offset,
+      n_local, stay, evicted, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,21 +316,25 @@ int sslap_resolve_i32(const int32_t* ids, const int32_t* tgt,
 }
 
 int sslap_commit_f32(const int32_t* ids, const int32_t* tgt,
-                     const float* bid, int64_t C, int32_t n, int32_t m,
+                     const float* bid, int64_t C, int32_t n_rows, int32_t m,
                      unsigned long long* keys, float* prices, int32_t* owner,
-                     int32_t* sigma, int32_t* stay, int32_t* evicted,
-                     int32_t* counts, void* stream) {
-  return launch_commit<float>(ids, tgt, bid, C, n, m, keys, prices, owner,
-                              sigma, stay, evicted, counts, stream);
+                     int32_t* sigma, int32_t row_offset, int32_t n_local,
+                     int32_t* stay, int32_t* evicted, int32_t* counts,
+                     void* stream) {
+  return launch_commit<float>(ids, tgt, bid, C, n_rows, m, keys, prices,
+                              owner, sigma, row_offset, n_local, stay,
+                              evicted, counts, stream);
 }
 
 int sslap_commit_i32(const int32_t* ids, const int32_t* tgt,
-                     const int32_t* bid, int64_t C, int32_t n, int32_t m,
-                     unsigned long long* keys, int32_t* prices,
-                     int32_t* owner, int32_t* sigma, int32_t* stay,
-                     int32_t* evicted, int32_t* counts, void* stream) {
-  return launch_commit<int32_t>(ids, tgt, bid, C, n, m, keys, prices, owner,
-                                sigma, stay, evicted, counts, stream);
+                     const int32_t* bid, int64_t C, int32_t n_rows,
+                     int32_t m, unsigned long long* keys, int32_t* prices,
+                     int32_t* owner, int32_t* sigma, int32_t row_offset,
+                     int32_t n_local, int32_t* stay, int32_t* evicted,
+                     int32_t* counts, void* stream) {
+  return launch_commit<int32_t>(ids, tgt, bid, C, n_rows, m, keys, prices,
+                                owner, sigma, row_offset, n_local, stay,
+                                evicted, counts, stream);
 }
 
 }  // extern "C"

@@ -252,7 +252,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               implicit ? static_cast<int32_t>(i) : __ldcg(cur + i);
           bool won;
           relist = sslap::commit_bid(id, t, __ldcg(p.bid + i), p.keys,
-                                     p.prices, p.owner, p.sigma, &won);
+                                     p.prices, p.owner, p.sigma, 0, p.n,
+                                     &won);
         }
       }
       warp_append(relist >= 0, relist, nxt, cnt);
@@ -297,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (t < p.m) {
         bool won;
         relist = sslap::commit_bid(id, t, b, p.keys, p.prices, p.owner,
-                                   p.sigma, &won);
+                                   p.sigma, 0, p.n, &won);
       }
       warp_append(relist >= 0, relist, s_ids[sb ^ 1], &s_cnt[sb ^ 1]);
       __syncthreads();

@@ -9,7 +9,8 @@
 //               merged and turned into the bid.
 //   bid_key     K2's resolve key: one 64-bit atomicMax per bidder leaves,
 //               per column, the highest bid with the lowest row.
-//   commit_bid  K2's commit of one bid whose key survived.
+//   commit_bid  K2's commit of one bid whose key survived (sigma may be
+//               one shard's rows).
 #pragma once
 
 #include <climits>
@@ -271,16 +272,22 @@ __device__ __forceinline__ unsigned long long bid_key(T b, int32_t row) {
 // bid has one winner, so the [m] table is all zero again after the round
 // with no memset; a loser that reads the cleared key still compares
 // unequal), reads the previous owner, writes price = its bid, owner,
-// sigma, and clears the evictee's sigma (an evictee is assigned, so never
-// a bidder of this round: the writes are disjoint).  keys and owner are
-// read through L2 (__ldcg), so a caller may run this after a grid barrier.
-// Returns the row to relist: the bidder if it lost, the evicted previous
-// owner (or -1 for none) if it won; *won says which.
+// and the sigma of its row and the evictee's (an evictee is assigned, so
+// never a bidder of this round: the writes are disjoint).  Rows are
+// global ids and `sigma` holds rows [row_offset, row_offset + n_local):
+// a row outside them belongs to another shard, whose sigma write is
+// skipped here (K2 over a gathered set, parallel/sharded_compact.py); the
+// ladder passes 0 and n.  keys and owner are read through L2 (__ldcg), so
+// a caller may run this after a grid barrier.  Returns the row to relist:
+// the bidder if it lost, the evicted previous owner (or -1 for none) if
+// it won; *won says which.
 template <typename T>
 __device__ __forceinline__ int32_t commit_bid(int32_t id, int32_t j, T b,
                                               unsigned long long* keys,
                                               T* prices, int32_t* owner,
-                                              int32_t* sigma, bool* won) {
+                                              int32_t* sigma,
+                                              int32_t row_offset,
+                                              int32_t n_local, bool* won) {
   if (__ldcg(keys + j) != bid_key(b, id)) {
     *won = false;
     return id;
@@ -289,8 +296,13 @@ __device__ __forceinline__ int32_t commit_bid(int32_t id, int32_t j, T b,
   const int32_t prev = __ldcg(owner + j);
   prices[j] = b;
   owner[j] = id;
-  sigma[id] = j;
-  if (prev >= 0) sigma[prev] = -1;
+  const uint32_t local_n = static_cast<uint32_t>(n_local);
+  const uint32_t w = static_cast<uint32_t>(id - row_offset);
+  if (w < local_n) sigma[w] = j;
+  if (prev >= 0) {
+    const uint32_t e = static_cast<uint32_t>(prev - row_offset);
+    if (e < local_n) sigma[e] = -1;
+  }
   *won = true;
   return prev;
 }

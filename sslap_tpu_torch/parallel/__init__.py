@@ -1,10 +1,8 @@
 """Distribution layer: the row-sharded auction over a mesh of devices, in
 one process or across processes (``torch.distributed``).  Counterpart of
 ``sslap_tpu/parallel/``: ``partition.py``, ``mesh.py``, ``sharded.py``,
-``overlap.py`` and ``scaling.py`` are ported; ``multiproc.py`` launches
-the multi-process runs.  The sharded-hybrid solve
-(``auction_solve_sharded_hybrid``, ``sharded_ladder_tiers``) is not
-ported yet (ROADMAP.md)."""
+``overlap.py``, ``scaling.py`` and ``sharded_compact.py`` (the sharded
+hybrid) are ported; ``multiproc.py`` launches the multi-process runs."""
 
 from sslap_tpu_torch.parallel.mesh import Mesh, initialize_multihost, \
     make_mesh
@@ -15,6 +13,9 @@ from sslap_tpu_torch.parallel.sharded import auction_solve_sharded, \
 from sslap_tpu_torch.parallel.overlap import auction_solve_overlapped, \
     solve_ell_overlapped
 from sslap_tpu_torch.parallel.scaling import measure_round_breakdown
+from sslap_tpu_torch.parallel.sharded_compact import \
+    auction_solve_sharded_hybrid, balanced_cap, comm_bytes_model, \
+    sharded_ladder_tiers
 
 __all__ = [
     "Mesh",
@@ -28,4 +29,8 @@ __all__ = [
     "sharded_solve_ell",
     "solve_ell_overlapped",
     "measure_round_breakdown",
+    "auction_solve_sharded_hybrid",
+    "sharded_ladder_tiers",
+    "balanced_cap",
+    "comm_bytes_model",
 ]

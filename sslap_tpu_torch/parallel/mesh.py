@@ -10,9 +10,9 @@ entry belongs to a process (``Mesh.processes``): a mesh built by
 process's devices, in process-major order.
 
 ``run_spmd`` runs this process's shards, one thread per entry bound to its
-device, and hands them a group with the collectives (all-reduce) that
-JAX's ``shard_map`` gave the reference.  One interface, two
-implementations: ``ThreadGroup`` for a mesh held by one process, and
+device, and hands them a group with the collectives (all-reduce,
+all-gather) that JAX's ``shard_map`` gave the reference.  One interface,
+two implementations: ``ThreadGroup`` for a mesh held by one process, and
 ``ProcessSpanGroup``, which reduces across this process's threads in rank
 order, then across processes with ``torch.distributed`` (also
 asynchronously: a handle that is waited on later).  The threads of a
@@ -113,9 +113,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 
     ``backend``: Gloo for CPU meshes, NCCL for CUDA ones by default (NCCL
     when this host has a CUDA device).  NCCL refuses two ranks on one
-    card; Gloo carries CUDA tensors for all-reduce (and CPU tensors for
-    the all-gather of ``fetch_global``).  ``timeout``: seconds the group
-    waits for its peers (torch's default when None)."""
+    card.  Gloo all-reduces CUDA tensors but all-gathers on the host;
+    NCCL takes every collective on the card (``_staged``).
+    ``timeout``: seconds the group waits for its peers (torch's default
+    when None)."""
     explicit = (coordinator_address is not None or num_processes is not None
                 or process_id is not None)
     if not dist.is_available():
@@ -174,16 +175,25 @@ def put_global_args(mesh: Mesh, specs, args):
                  for a, s in zip(args, specs, strict=True))
 
 
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the process group's all-gather takes it: on the host
+    under Gloo (which gathers host tensors only), on a card under NCCL
+    (which takes CUDA tensors only)."""
+    if dist.get_backend() == "gloo":
+        return t.cpu().contiguous()
+    return (t if t.is_cuda else t.cuda()).contiguous()
+
+
 def fetch_global(x) -> np.ndarray:
     """Host numpy value of a result.  A ``ProcessRows`` is gathered from
     every process (a COLLECTIVE: every process calls this on the same
     results in the same order, the SPMD rule all of parallel/ follows);
     a tensor or array held by this process converts directly."""
     if isinstance(x, ProcessRows):
-        local = x.local.cpu().contiguous()
+        local = _staged(x.local)
         parts = [torch.empty_like(local) for _ in range(process_count())]
         dist.all_gather(parts, local)
-        return torch.cat(parts).numpy()
+        return torch.cat(parts).cpu().numpy()
     if torch.is_tensor(x):
         return x.cpu().numpy()
     return np.asarray(x)
@@ -213,16 +223,16 @@ class Handle:
 
 
 class ThreadGroup:
-    """All-reduce among the shard threads of one process: global ranks
+    """Collectives among the shard threads of one process: global ranks
     ``ranks`` of a mesh of ``world`` entries.  The ranks take turns: one
     runs at a time, until its next collective, then hands on to the next
     rank (so the threads never contend for the interpreter lock, which
     every torch call releases and retakes).  At a collective each rank
-    deposits its tensor; the last rank reduces them in rank order on the
-    first rank's device (and, in a ``ProcessSpanGroup``, across the
-    processes); each rank, at its next turn, takes the result on its
-    device.  All ranks must call the same collectives in the same order;
-    ``abort`` wakes every waiting rank with GroupAborted."""
+    deposits its tensor; the last rank reduces (or concatenates) them in
+    rank order on the first rank's device (and, in a ``ProcessSpanGroup``,
+    across the processes); each rank, at its next turn, takes the result
+    on its device.  All ranks must call the same collectives in the same
+    order; ``abort`` wakes every waiting rank with GroupAborted."""
 
     def __init__(self, ranks: Sequence[int], world: int):
         self.ranks = list(ranks)
@@ -248,20 +258,33 @@ class ThreadGroup:
         one."""
         return acc, None
 
-    def _reduce(self, rank: int, t: torch.Tensor, op: Callable, wait: bool):
+    def _gather_across(self, local: torch.Tensor) -> torch.Tensor:
+        """This process's ranks' tensors, concatenated, gathered from every
+        process: nothing to gather within one."""
+        return local
+
+    def _exchange(self, rank: int, t: torch.Tensor, combine: Callable):
+        """Every rank deposits ``t``; the last rank of the process calls
+        ``combine`` on the deposits, in rank order, on the first rank's
+        device; each rank, at its next turn, takes the result."""
         if self.size == 1:
-            return self._across(t.clone(), op, wait)
+            return combine([t])
         self._slots[self._index[rank]] = t
         if self._index[rank] == self.size - 1:
             dev = self._slots[0].device
-            acc = self._slots[0]
-            for x in self._slots[1:]:
-                acc = op(acc, x.to(dev))
-            self._result = self._across(acc, op, wait)
+            self._result = combine([x.to(dev) for x in self._slots])
             self._slots = [None] * self.size
         self._pass(rank)
         self.wait_turn(rank)
         return self._result
+
+    def _reduce(self, rank: int, t: torch.Tensor, op: Callable, wait: bool):
+        def fold(xs):
+            acc = xs[0].clone() if len(xs) == 1 else xs[0]
+            for x in xs[1:]:
+                acc = op(acc, x)
+            return self._across(acc, op, wait)
+        return self._exchange(rank, t, fold)
 
     def all_reduce(self, rank: int, t: torch.Tensor,
                    op: Callable) -> torch.Tensor:
@@ -277,6 +300,14 @@ class ThreadGroup:
         done by the time this returns: nothing overlaps."""
         return Handle(*self._reduce(rank, t, op, False), t.device)
 
+    def all_gather(self, rank: int, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (the same shape on every rank) concatenated
+        along dim 0 in global rank order, on ``t``'s device: read-only,
+        since every rank of the process may share it."""
+        value = self._exchange(
+            rank, t, lambda xs: self._gather_across(torch.cat(xs)))
+        return value.to(t.device)
+
     def finish(self, rank: int) -> None:
         """Rank ``rank`` is done: hand the turn on for good."""
         if self.size > 1:
@@ -289,11 +320,12 @@ class ThreadGroup:
 
 
 class ProcessSpanGroup(ThreadGroup):
-    """A ``ThreadGroup`` whose reduction goes on across the processes of
+    """A ``ThreadGroup`` whose collectives go on across the processes of
     the initialised ``torch.distributed`` group: the last thread of each
-    process reduces its process's tensors in rank order, then all-reduces
-    that across the processes (ops ``torch.add``, ``torch.maximum``,
-    ``torch.minimum``; integers reduce in any order to the same result; a
+    process reduces (or concatenates) its process's tensors in rank order,
+    then all-reduces (or all-gathers) that across the processes (ops
+    ``torch.add``, ``torch.maximum``, ``torch.minimum``; integers reduce
+    in any order to the same result; a
     float max loses the rank order of -0.0 against +0.0, which no solve
     bids).  ``all_reduce_async`` returns before the cross-process
     reduction is done."""
@@ -306,6 +338,16 @@ class ProcessSpanGroup(ThreadGroup):
                                                 _DIST_OPS[op]),
                                async_op=not wait)
         return flat.reshape(acc.shape), work
+
+    def _gather_across(self, local: torch.Tensor) -> torch.Tensor:
+        # the ranks of a process are adjacent on the mesh (process-major),
+        # so the processes' blocks in process order are the ranks'
+        # tensors in rank order
+        part = _staged(local)
+        out = part.new_empty((process_count() * part.shape[0],)
+                             + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(out, part)
+        return out.to(local.device)
 
 
 def _on(device: torch.device):

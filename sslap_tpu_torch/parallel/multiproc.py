@@ -3,7 +3,7 @@
 process-spanning mesh.  Counterpart of ``benchmarks/multiproc_sim.py``.
 
     python -m sslap_tpu_torch.parallel.multiproc [--backend sharded|
-        overlapped|batched] [--n 256] [--k 8] [--nproc 2]
+        overlapped|sharded_hybrid|batched] [--n 256] [--k 8] [--nproc 2]
         [--local-devices 1] [--device cuda|cpu] [--dist-backend gloo]
         [--instrument] [--problem PATH.npz --max-iter R] [--timeout 300]
         [--out PATH.npz]
@@ -17,10 +17,16 @@ pins its torch threads to ``OMP_NUM_THREADS`` (1 by default), calls
 contract: every process holds the same inputs), solves it over
 ``make_mesh([device] * local_devices)``, which spans every process, and
 compares the objective with scipy's.  ``--out`` saves worker 0's solution
-(npz) for a caller to compare with a one-process run.  Exit code 0 iff
+(npz) for a caller to compare with a one-process run; the report carries
+worker 0's kernel launches (K1, K2, its resolve launch alone, the fused
+key commit).  Exit code 0 iff
 every worker's objectives matched.  The workers solve on the card unless
-``--device cpu`` is given.  On one card, pass ``--dist-backend gloo``:
-NCCL refuses two ranks on one card.
+``--device cpu`` is given.  On one card, keep ``--dist-backend gloo``
+(every shard on that card): NCCL refuses two ranks on one card, so under
+``--dist-backend nccl`` worker w takes cards w * L .. w * L + L - 1
+(L = ``--local-devices``), one a shard.  With ``sharded_hybrid`` every worker
+runs the host Gauss-Seidel tail on the replicated prices, as the
+reference's processes do.
 
 ``--problem`` instead solves a saved ELL problem and eps schedule
 (``save_problem``) through ``solve_ell_overlapped`` or
@@ -141,11 +147,16 @@ def worker(args) -> int:
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
     from sslap_tpu_torch.parallel.mesh import initialize_multihost, \
         make_mesh, process_count
+    devices = [torch.device(args.device)] * args.local_devices
+    if args.dist_backend == "nccl":
+        # a card per shard: worker w takes cards w * L .. w * L + L - 1
+        devices = [torch.device("cuda", args.worker * args.local_devices + i)
+                   for i in range(args.local_devices)]
+        torch.cuda.set_device(devices[0])
     initialize_multihost(f"localhost:{args.port}", args.nproc, args.worker,
                          backend=args.dist_backend, timeout=args.timeout)
     if process_count() != args.nproc:
         raise RuntimeError("the process group did not form")
-    devices = [torch.device(args.device)] * args.local_devices
     out = {}
     t0 = time.perf_counter()
     if args.problem:
@@ -174,12 +185,15 @@ def worker(args) -> int:
                    objs=[np.nan if o is None else float(o) for o in objs])
     else:
         from sslap_tpu_torch.parallel import auction_solve_overlapped, \
-            auction_solve_sharded
+            auction_solve_sharded, auction_solve_sharded_hybrid
         loc, val = build_instance(args.n, args.k, args.seed)
+        kw = {} if args.backend == "sharded_hybrid" else dict(
+            instrument=args.instrument)
         fn = {"sharded": auction_solve_sharded,
-              "overlapped": auction_solve_overlapped}[args.backend]
+              "overlapped": auction_solve_overlapped,
+              "sharded_hybrid": auction_solve_sharded_hybrid}[args.backend]
         res = fn(loc=loc, val=val, shape=(args.n, args.n), mesh=make_mesh(
-            devices), instrument=args.instrument)
+            devices), **kw)
         solve_s = time.perf_counter() - t0
         mt = res["meta"]
         want = scipy_objective(loc, val, args.n)
@@ -190,13 +204,19 @@ def worker(args) -> int:
                   "phases": mt["phases"], "final_eps": mt["final_eps"]}
         report.update({k: mt[k] for k in (
             "round_s", "compute_s", "comm_s", "comm_fraction",
-            "nnz_imbalance") if k in mt})
+            "nnz_imbalance", "tier_rounds", "host_bids", "ladder_rebuilds",
+            "comm_bytes_total") if k in mt})
         out.update(sol=res["sol"], prices=res["prices"], its=mt["its"],
                    phases=mt["phases"], final_eps=mt["final_eps"],
-                   obj=mt["obj"])
+                   obj=mt["obj"], **{k: mt[k] for k in (
+                       "tier_rounds", "host_bids") if k in mt})
+    from sslap_tpu_torch.ops import bid_topk, commit
+    from sslap_tpu_torch.ops.commit import commit_keys, resolve
     report.update(nproc=args.nproc, devices_per_proc=args.local_devices,
                   device=args.device, dist_backend=args.dist_backend,
-                  solve_s=solve_s)
+                  solve_s=solve_s, launches={
+                      f.__name__: f.launches
+                      for f in (bid_topk, commit, resolve, commit_keys)})
     if args.worker == 0:
         if args.out:
             np.savez(args.out, **out)
@@ -260,7 +280,8 @@ def launcher(args) -> int:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--backend", default="sharded",
-                    choices=("sharded", "overlapped", "batched"))
+                    choices=("sharded", "overlapped", "sharded_hybrid",
+                             "batched"))
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--nproc", type=int, default=2)
@@ -285,10 +306,14 @@ def parse_args(argv=None):
     ap.add_argument("--port", type=int, default=None,
                     help="internal: the coordinator port")
     args = ap.parse_args(argv)
-    if args.problem and (args.backend == "batched" or args.max_iter is None
-                         or args.instrument):
+    if args.problem and (args.backend in ("batched", "sharded_hybrid")
+                         or args.max_iter is None or args.instrument):
         ap.error("--problem takes the sharded or overlapped backend, "
                  "--max-iter and no --instrument")
+    if args.instrument and args.backend in ("batched", "sharded_hybrid"):
+        ap.error("--instrument takes the sharded or overlapped backend")
+    if args.dist_backend == "nccl" and args.device != "cuda":
+        ap.error("--dist-backend nccl takes --device cuda")
     return args
 
 

@@ -90,13 +90,17 @@ def count_left(sigma, nvalid, pending):
 
 def overlapped_phase(cols, vals_t, valid, nvalid, prices, owner, sigma, eps,
                      bigp, row_offset: int, group: ThreadGroup, rank: int,
-                     max_rounds: int):
+                     max_rounds: int, gate: int = 0, drain: bool = False):
     """Run one eps phase with one-deep overlapped combines, on shard
     ``rank`` of ``group`` (rows [row_offset, row_offset + n_local)); the
-    phase ends when no row over all shards is left or pending, or after
-    ``max_rounds`` rounds (bids still pending are dropped).  ``prices``,
-    ``owner`` (replicas) and ``sigma`` (local rows) are updated IN PLACE.
-    Returns (prices, owner, sigma, rounds)."""
+    phase ends when at most ``gate`` rows over all shards are left or
+    pending, or after ``max_rounds`` rounds.  Bids still pending are
+    dropped, or with ``drain`` combined and committed (guarded) after the
+    last round, as the sharded hybrid's full-width regime ends
+    (``parallel/sharded_compact.py``).  ``prices``, ``owner`` (replicas)
+    and ``sigma`` (local rows) are updated IN PLACE.  Returns (prices,
+    owner, sigma, rounds)."""
+    from sslap_tpu_torch.ops.commit import commit_keys
     vals_m = _auction.mask_vals(vals_t, valid)
     pipe = Pipeline(sigma.shape[0], prices.shape[0], prices.device)
     combine = make_pmax_combine(group, rank)
@@ -104,11 +108,14 @@ def overlapped_phase(cols, vals_t, valid, nvalid, prices, owner, sigma, eps,
     while rounds < max_rounds:
         left = group.all_reduce(rank, count_left(sigma, nvalid, pipe.pending),
                                 torch.add)
-        if int(left) == 0:
+        if int(left) <= gate:
             break
         pipe.round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
                    row_offset, combine)
         rounds += 1
+    if drain:
+        commit_keys(combine.keys(pipe.keys[0]), prices, owner, sigma,
+                    row_offset, eps)
     return prices, owner, sigma, rounds
 
 

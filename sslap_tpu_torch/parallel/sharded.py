@@ -6,21 +6,19 @@ Each shard owns a contiguous block of rows of the ELL layout and a
 with the reference's injection points.  Every Jacobi round:
 
   1. each shard bids for its rows (K1 over its local row ids) and folds
-     the bids per column under global row ids: on the CPU into (best,
-     winner) by ``resolve_bids``; on CUDA into its [m] key table by K2's
+     the bids into its [m] key table under global row ids by K2's
      resolve launch alone (key = order bits of the bid << 32 | (2**32 - 1
      - row));
-  2. the shards' results are combined: on the CPU pmax of best, then pmin
-     of winner among the shards holding the max; on CUDA one elementwise
-     max of the key tables, which is the same rule (highest bid, then
+  2. the shards' tables are combined by one elementwise max, the
+     reference's pmax of best then pmin of winner (highest bid, then
      lowest global row) in one pass;
   3. every shard applies the same commit to its replicas and updates the
-     rows of sigma it owns: ``commit_bids`` with ``row_offset`` on the
-     CPU, the fused key commit on CUDA (``ops.commit.commit_keys``, which
-     also zeroes the key table again).
+     rows of sigma it owns: the fused key commit
+     (``ops.commit.commit_keys``, which also zeroes the key table again).
 
-The loop control reads a count summed over the shards, so every shard
-leaves each phase on the same round.  Each process drives its shards of
+On the CPU each step is its kernel's plain version.  The loop control
+reads a count summed over the shards, so every shard leaves each phase
+on the same round.  Each process drives its shards of
 the mesh (``mesh.run_spmd``: a thread each, collectives through its
 group; the shards of a process-spanning mesh reduce across processes
 with ``torch.distributed``); shards on one card launch in turn on its one
@@ -31,6 +29,7 @@ unsharded ``solve_ell``.
 from __future__ import annotations
 
 import time
+import types
 from typing import Optional
 
 import numpy as np
@@ -60,16 +59,16 @@ class _Combined:
 
 
 def make_pmax_combine(group: ThreadGroup, rank: int):
-    """Cross-shard combine of rank ``rank``: ``combine(best, winner)`` is
-    the max bid, then the min row id among the shards holding it (two
-    all-reduces of [m]; within a process the max is taken in rank order,
-    which keeps the first of equal values, as the reference's pmax does
-    with -0.0 and +0.0); ``combine.keys(keys)`` leaves the max of the
-    shards' key tables in ``keys`` (one all-reduce of [m] int64; bit 63
-    flipped around it, so the signed max is the keys' unsigned order:
-    ``ops.commit.KEY_FLIP``), the same rule on CUDA, where a zero best
-    decodes as +0.0 (``decode_keys``); ``combine.keys_async(keys)`` starts
-    it and returns a handle whose ``wait()`` does the rest."""
+    """Cross-shard combine of rank ``rank``.  ``combine.keys(keys)``, what
+    the solves run, leaves the max of the shards' key tables in ``keys``
+    (one all-reduce of [m] int64; bit 63 flipped around it, so the signed
+    max is the keys' unsigned order: ``ops.commit.KEY_FLIP``): the highest
+    bid, then the lowest row, where a zero best decodes as +0.0
+    (``decode_keys``); ``combine.keys_async(keys)`` starts it and returns
+    a handle whose ``wait()`` does the rest.  ``combine(best, winner)`` is
+    the reference's pmax/pmin pair (two all-reduces of [m]; within a
+    process the max is taken in rank order, which keeps the first of equal
+    values, as pmax does with -0.0 and +0.0): the tests' oracle."""
 
     def combine(best, winner):
         best_g = group.all_reduce(rank, best, torch.maximum)
@@ -88,14 +87,10 @@ def make_pmax_combine(group: ThreadGroup, rank: int):
     return combine
 
 
-def local_combine(best, winner):
-    """The identity combine: each shard commits its own bids alone (the
-    round without its collective, ``parallel/scaling.py``)."""
-    return best, winner
-
-
-local_combine.keys = lambda keys: keys
-local_combine.keys_async = _Combined
+# The identity combine: each shard commits its own bids alone (the round
+# without its collective, ``parallel/scaling.py``).
+local_combine = types.SimpleNamespace(keys=lambda keys: keys,
+                                      keys_async=_Combined)
 
 
 def gather_rows(mesh: Mesh, parts):

@@ -174,7 +174,7 @@ def test_infeasible_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mode="sharded_hybrid"),
+    dict(engine="candidates", mode="sharded_hybrid"),
     dict(engine="candidates"), dict(engine="candidates", mode="hybrid"),
     dict(engine="candidates", mode="device"),
 ])
@@ -183,6 +183,26 @@ def test_unported_modes_and_engines_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         P.AuctionSolver(loc=loc, val=val, shape=(50, 50), device="cpu",
                         **kw).solve()
+
+
+def test_mode_sharded_hybrid_solves_as_the_reference():
+    """mode='sharded_hybrid' (formerly refused) routes to the sharded
+    hybrid: AuctionSolver on the CPU (one shard) equals the reference's
+    (eight virtual devices) in sol, prices and the rounds, which do not
+    depend on the shard count (trunc > 0, no ladder balance); the rounds
+    by tier and the comm bytes do."""
+    loc, val = _instance(12, 50, True)
+    r = R.AuctionSolver(loc=loc, val=val, shape=(50, 50),
+                        mode="sharded_hybrid").solve()
+    p = P.AuctionSolver(loc=loc, val=val, shape=(50, 50),
+                        mode="sharded_hybrid", device="cpu").solve()
+    np.testing.assert_array_equal(p["sol"], r["sol"])
+    np.testing.assert_array_equal(_bits(p["prices"]), _bits(r["prices"]))
+    assert set(p["meta"]) == set(r["meta"])
+    for k in ("its", "host_bids", "phases", "final_eps", "unassigned",
+              "soln_found", "obj", "mode"):
+        assert p["meta"][k] == r["meta"][k], k
+    assert (p["meta"]["n_shards"], r["meta"]["n_shards"]) == (1, 8)
 
 
 def test_mode_overlapped_solves_as_the_reference():

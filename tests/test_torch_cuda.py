@@ -1231,3 +1231,117 @@ def test_overlapped_solve_on_one_card_matches_cpu(dev, case):
             on_card["prices"])), _bits(torch.from_numpy(other["prices"])))
         assert all(on_card["meta"][k] == other["meta"][k]
                    for k in ("its", "phases", "unassigned", "final_eps"))
+
+
+def _gathered_state(rng, D, n_local, m, C, dtype):
+    """The bids D shards all-gather in a compact exchange round of the
+    sharded hybrid: per shard C slots of sorted unassigned rows (its own,
+    as global ids; 1/8 pads = D * n_local, tgt = m), targets drawn from a
+    quarter of the columns (contention and ties), and the replicas and
+    every row's sigma of a random matching."""
+    n = D * n_local
+    owner = np.full(m, -1, np.int32)
+    held = rng.choice(n, n // 3, replace=False)
+    owner[rng.choice(m, held.size, replace=False)] = held
+    sig = np.full(n, -1, np.int32)
+    sig[owner[owner >= 0]] = np.flatnonzero(owner >= 0)
+    live = C - C // 8
+    ids, tgt = [], []
+    for s in range(D):
+        free = np.flatnonzero(sig[s * n_local:(s + 1) * n_local] < 0)
+        ids.append(np.concatenate([np.sort(rng.choice(free, live, False))
+                                   + s * n_local, [n] * (C - live)]))
+        tgt.append(np.concatenate([rng.integers(0, m // 4, live),
+                                   [m] * (C - live)]))
+    if dtype == np.float32:
+        bid = (rng.integers(0, 40, D * C) * 0.5).astype(np.float32)
+        prices = (rng.integers(0, 10, m) * 0.5).astype(np.float32)
+    else:
+        bid = rng.integers(0, 40, D * C).astype(np.int32)
+        prices = rng.integers(0, 10, m).astype(np.int32)
+    return (np.concatenate(ids).astype(np.int32),
+            np.concatenate(tgt).astype(np.int32), bid, prices, owner, sig)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("shard", [0, 2])
+def test_gathered_commit_matches_plain(dev, dtype, shard):
+    """K2 over a gathered set of 4 shards (ops.commit.commit with a row
+    offset), as shard ``shard`` commits it, against its plain version:
+    stay, evicted, counts, prices bits, owner and the shard's sigma equal;
+    the key table zeroed; other shards' rows left alone."""
+    import importlib
+    K2 = importlib.import_module("sslap_tpu_torch.ops.commit")
+    D, n_local, m, C = 4, 20_000, 60_000, 8192
+    ids, tgt, bid, prices, owner, sig = _gathered_state(
+        np.random.default_rng(shard), D, n_local, m, C, dtype)
+    off = shard * n_local
+    out = {}
+    for side, d in (("kernel", dev), ("plain", torch.device("cpu"))):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in
+             (ids, tgt, bid, prices, owner, sig[off:off + n_local])]
+        keys = torch.zeros(m, dtype=torch.int64, device=d)
+        launches = K2.commit.launches
+        res = K2.commit(*t, keys, row_offset=off, n_rows=D * n_local)
+        torch.cuda.synchronize()
+        assert K2.commit.launches == launches + (side == "kernel")
+        assert int(keys.count_nonzero()) == 0
+        out[side] = [x.cpu() for x in (*res, *t[3:])]
+    for a, b in zip(out["kernel"], out["plain"]):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    won, evicted, stayed = out["kernel"][2].tolist()
+    assert won > 0 and evicted > 0 and stayed > 0
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_hybrid_on_one_card_matches_cpu(dev, shards):
+    """The sharded hybrid on shards of one card (K1, the key-table rounds,
+    and in the ladder the all-gathered triples through K2 with the shard's
+    row offset) against the same solve on a CPU mesh of as many shards:
+    sol, prices bits and the meta (its, phases, tier_rounds, host bids,
+    objective, comm bytes) equal, plain and balanced (also on the
+    reference's contested instance, whose balanced buffers overflow on 4
+    shards: local rebuilds run); K2 launches once a shard a ladder round,
+    K1 once a shard a round."""
+    from sslap_tpu_torch import parallel as PP
+    from sslap_tpu_torch.ops.commit import commit_keys, resolve
+    n = 3000
+    rng = np.random.default_rng(33)
+    rr = np.concatenate([np.repeat(np.arange(n), 6), np.arange(n)])
+    cc = np.concatenate([rng.integers(0, n, n * 6), rng.permutation(n)])
+    _, idx = np.unique(rr * n + cc, return_index=True)
+    loc = np.stack([rr[idx], cc[idx]], 1)
+    val = (rng.random(len(idx)) * 99 + 1).astype(np.float32)
+    # tests/utils.py's contested_instance(5000, 128): a dense 128 x 128
+    # block on rows 0..127, the other rows diagonal
+    nc, C = 5000, 128
+    c_val = np.random.default_rng(0).integers(1, 100, C * C + nc - C)
+    c_loc = np.stack([np.r_[np.repeat(np.arange(C), C), np.arange(C, nc)],
+                      np.r_[np.tile(np.arange(C), C), np.arange(C, nc)]], 1)
+    balanced = dict(trunc=32, ladder_balance=True, balance_floor=16)
+    for kw in (dict(trunc=32, loc=loc, val=val, shape=(n, n)),
+               dict(balanced, loc=loc, val=val, shape=(n, n)),
+               dict(balanced, loc=c_loc, val=c_val.astype(np.float32),
+                    shape=(nc, nc))):
+        bid_topk.launches = commit.launches = 0
+        resolve.launches = commit_keys.launches = 0
+        card = PP.auction_solve_sharded_hybrid(
+            mesh=PP.make_mesh([dev] * shards), **kw)
+        torch.cuda.synchronize()
+        mt = card["meta"]
+        tr = mt["tier_rounds"]
+        assert mt["soln_found"] and sum(tr[2:]) > 0
+        assert bid_topk.launches == shards * mt["its"]
+        assert commit.launches == shards * sum(tr[2:])
+        assert resolve.launches == commit_keys.launches == \
+            shards * (tr[0] + tr[1])
+        cpu = PP.auction_solve_sharded_hybrid(
+            mesh=PP.make_mesh([torch.device("cpu")] * shards), **kw)
+        np.testing.assert_array_equal(card["sol"], cpu["sol"])
+        np.testing.assert_array_equal(_bits(torch.from_numpy(
+            card["prices"])), _bits(torch.from_numpy(cpu["prices"])))
+        for k, v in cpu["meta"].items():
+            if k not in ("time", "device_time", "host_gs_time"):
+                assert mt[k] == v, k
+        if kw["loc"] is c_loc and shards > 1:
+            assert mt["ladder_rebuilds"] >= 1

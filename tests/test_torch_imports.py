@@ -1,7 +1,8 @@
 """The port stands alone: importing ``sslap_tpu_torch`` (the batched,
 feasibility-seed and parallel modules included) and everything
 ``chip_smoke.py`` imports, then solving a small instance, a small batch
-and a sharded instance on the CPU through the native host runtime, with
+and a sharded instance (plain and sharded hybrid) on the CPU through the
+native host runtime, with
 the device seed of the Hopcroft-Karp check (the overlapped, scaling and
 multi-process modules imported too), loads no jax and no file of the JAX
 package (``sslap_tpu/``), and the port's native library is its own build
@@ -40,6 +41,9 @@ _, metas = PB.auction_solve_batched(batch, mode="hybrid", device="cpu")
 sharded = parallel.auction_solve_sharded(
     loc=loc, val=val, shape=(n, n), max_iter=50,
     mesh=parallel.make_mesh([torch.device("cpu")] * 2))
+hybrid = parallel.auction_solve_sharded_hybrid(
+    loc=loc, val=val, shape=(n, n),
+    mesh=parallel.make_mesh([torch.device("cpu")] * 2))
 seeded = feasibility.is_feasible(P.from_coo(loc, val, shape=(n, n)),
                                  device_seed=True, device="cpu")
 print(json.dumps({
@@ -50,7 +54,7 @@ print(json.dumps({
     "native_lib": getattr(_native._lib, "_name", None),
     "soln_found": res["meta"]["soln_found"]
     and all(mt["soln_found"] for mt in metas) and seeded
-    and sharded["meta"]["n_shards"] == 2,
+    and sharded["meta"]["n_shards"] == 2 and hybrid["meta"]["soln_found"],
 }))
 """
 
@@ -79,6 +83,7 @@ def test_port_loads_nothing_of_the_jax_package():
     assert "sslap_tpu_torch.parallel.overlap" in names
     assert "sslap_tpu_torch.parallel.scaling" in names
     assert "sslap_tpu_torch.parallel.multiproc" in names
+    assert "sslap_tpu_torch.parallel.sharded_compact" in names
     if got["native"]:
         lib = Path(got["native_lib"]).resolve()
         assert lib.parent == ROOT / "sslap_tpu_torch" / "_build" / "native"

@@ -1,8 +1,10 @@
-"""Process-spanning meshes: the port's sharded, overlapped and batched
-solves in two processes joined by ``torch.distributed`` over Gloo on the
-CPU (``python -m sslap_tpu_torch.parallel.multiproc``), each equal bit
-for bit to the one-process run on a CPU mesh of the same shard count, and
-to scipy's objective; a saved problem solved under a round cap
+"""Process-spanning meshes: the port's sharded, overlapped, sharded-hybrid
+and batched solves in two processes joined by ``torch.distributed`` over
+Gloo on the CPU (``python -m sslap_tpu_torch.parallel.multiproc``), each
+equal bit for bit to the one-process run on a CPU mesh of the same shard
+count, and to scipy's objective (the sharded and sharded-hybrid solves
+also over NCCL, a card a process, where two cards are present); a saved
+problem solved under a round cap
 (``--problem``) equal to the same solve in one process; the card as the
 default device; and ``initialize_multihost``'s no-op and raise.
 
@@ -66,6 +68,59 @@ def test_two_process_solve_matches_one_process(tmp_path, backend, local):
     assert float(got["obj"]) == one["meta"]["obj"] == rep["scipy_obj"]
 
 
+def test_two_process_sharded_hybrid_matches_one_process(tmp_path):
+    """The sharded hybrid in 2 processes x 1 CPU shard (its compact
+    rounds all-gather across the processes; each process runs the host GS
+    tail) against one process on a CPU mesh of 2: sol, prices bits,
+    rounds, phases, final eps, tier_rounds and host bids; and scipy's
+    objective."""
+    rep, got = _launch(tmp_path, "--backend", "sharded_hybrid", "--n",
+                       "256")
+    assert rep["ok"] and rep["obj"] == rep["scipy_obj"]
+    assert rep["nproc"] == 2 and rep["n_shards"] == 2
+    loc, val = MP.build_instance(256, 8, 0)
+    one = PP.auction_solve_sharded_hybrid(loc=loc, val=val, shape=(256, 256),
+                                          mesh=PP.make_mesh([CPU] * 2))
+    mt = one["meta"]
+    assert sum(mt["tier_rounds"][2:]) > 0        # compact rounds ran
+    np.testing.assert_array_equal(got["sol"], one["sol"])
+    assert got["prices"].tobytes() == one["prices"].tobytes()
+    assert (int(got["its"]), int(got["phases"]), float(got["final_eps"]),
+            list(got["tier_rounds"]), int(got["host_bids"])) == \
+        (mt["its"], mt["phases"], mt["final_eps"], mt["tier_rounds"],
+         mt["host_bids"])
+    assert float(got["obj"]) == mt["obj"] == rep["scipy_obj"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["sharded", "sharded_hybrid"])
+def test_two_process_nccl_on_two_cards_matches_one_process(tmp_path,
+                                                           backend):
+    """Two processes over NCCL, a card each (their all-reduces and the
+    sharded hybrid's all-gathers stay on the cards; the result is gathered
+    from the cards) against one process on a CPU mesh of 2: sol, prices
+    bits, rounds, phases, final eps; and scipy's objective."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL takes a card a process)")
+    rep, got = _launch(tmp_path, "--backend", backend, "--n", "256",
+                       "--device", "cuda", "--dist-backend", "nccl")
+    assert rep["ok"] and rep["obj"] == rep["scipy_obj"]
+    assert rep["dist_backend"] == "nccl" and rep["n_shards"] == 2
+    loc, val = MP.build_instance(256, 8, 0)
+    fn = {"sharded": PP.auction_solve_sharded,
+          "sharded_hybrid": PP.auction_solve_sharded_hybrid}[backend]
+    one = fn(loc=loc, val=val, shape=(256, 256),
+             mesh=PP.make_mesh([CPU] * 2))
+    mt = one["meta"]
+    np.testing.assert_array_equal(got["sol"], one["sol"])
+    assert got["prices"].tobytes() == one["prices"].tobytes()
+    assert (int(got["its"]), int(got["phases"]), float(got["final_eps"])) \
+        == (mt["its"], mt["phases"], mt["final_eps"])
+    if backend == "sharded_hybrid":
+        assert sum(mt["tier_rounds"][2:]) > 0    # compact rounds ran
+        assert list(got["tier_rounds"]) == mt["tier_rounds"]
+
+
 def test_two_process_batched_matches_one_process(tmp_path):
     """The batched solve over a 'batch' mesh across two processes (the
     reference's test_two_process_batched_dp): every instance's solution
@@ -124,12 +179,17 @@ def test_two_process_saved_problem_matches_one_process(tmp_path, backend):
 
 def test_launcher_defaults_to_the_card_and_checks_problem_args():
     """The workers solve on the card unless the caller names the CPU;
-    ``--problem`` wants a round cap and a solve backend."""
+    ``--problem`` wants a round cap and a solve backend; NCCL wants the
+    card."""
     assert MP.parse_args([]).device == "cuda"
     assert MP.parse_args(["--device", "cpu"]).device == "cpu"
     for bad in (["--problem", "p.npz"],
                 ["--problem", "p.npz", "--max-iter", "5", "--backend",
-                 "batched"]):
+                 "batched"],
+                ["--problem", "p.npz", "--max-iter", "5", "--backend",
+                 "sharded_hybrid"],
+                ["--backend", "sharded_hybrid", "--instrument"],
+                ["--device", "cpu", "--dist-backend", "nccl"]):
         with pytest.raises(SystemExit):
             MP.parse_args(bad)
 

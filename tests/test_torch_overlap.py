@@ -322,29 +322,50 @@ def test_key_table_branch_on_cpu_equals_the_cpu_branch(shards, integer,
     assert len(tables) == 2 * shards * got["meta"]["phases"]
 
 
+def _pmax_round(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
+                keys=None, row_offset=0, combine=None):
+    """The sharded round in the reference's op order on (best, winner):
+    K1's plain version, ``resolve_bids``, the pmax/pmin combine and
+    ``commit_bids``."""
+    from sslap_tpu_torch.ops import bid_topk
+    n, m = sigma.shape[0], prices.shape[0]
+    rows = torch.arange(n, dtype=torch.int32)
+    ids = torch.where((sigma < 0) & (nvalid > 0), rows, n)
+    tgt, bid = bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner,
+                        eps, bigp)
+    best, winner = combine(*PA.resolve_bids(tgt, bid, m, ids + row_offset))
+    p, o, s = PA.commit_bids(best, winner, prices, owner, sigma, row_offset)
+    prices.copy_(p)
+    owner.copy_(o)
+    sigma.copy_(s)
+    return prices, owner, sigma
+
+
 @pytest.mark.parametrize("shape", [(40, 40), (30, 38)])
 def test_sharded_key_branch_on_cpu_equals_the_cpu_branch(shape,
                                                          monkeypatch):
-    """jacobi_round's card branch (K2's resolve into a key table, the max
+    """jacobi_round's one branch (K2's resolve into a key table, the max
     of the tables, the unguarded fused commit) on four CPU shards through
-    the plain versions equals the CPU branch, with the dummies' step on a
-    rectangle; every table is zero after each round."""
+    the plain versions equals the round in the reference's op order on
+    (best, winner), written here as the oracle, with the dummies' step on
+    a rectangle; every table is zero after each round."""
     rng = np.random.default_rng(sum(shape))
     loc, val, _ = random_sparse_instance(rng, *shape, 0.2)
     kw = dict(loc=loc, val=val, shape=shape, mesh=PP.make_mesh([CPU] * 4))
-    base = PP.auction_solve_sharded(**kw)
     jacobi_round = PA.jacobi_round
     seen = []
 
     def with_keys(cols, vals_m, nvalid, prices, owner, sigma, eps, bigp,
                   keys=None, row_offset=0, combine=None):
-        keys = torch.zeros(prices.shape[0], dtype=torch.int64)
         out = jacobi_round(cols, vals_m, nvalid, prices, owner, sigma, eps,
                            bigp, keys, row_offset=row_offset,
                            combine=combine)
         seen.append(int(keys.count_nonzero()))
         return out
 
+    with monkeypatch.context() as mp:
+        mp.setattr(PA, "jacobi_round", _pmax_round)
+        base = PP.auction_solve_sharded(**kw)
     monkeypatch.setattr(PA, "jacobi_round", with_keys)
     got = PP.auction_solve_sharded(**kw)
     np.testing.assert_array_equal(got["sol"], base["sol"])

@@ -9,6 +9,7 @@ counts equal, prices and final eps bit for bit.
 
 import importlib
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -325,12 +326,13 @@ def test_identity_combine_equals_the_unsharded_solve():
                                           prob.valid, prob.nvalid)]
     calls, rounds = [], []
 
-    def fake_combine(best, winner):
+    def fake_keys(keys):
         calls.append(1)
-        return best, winner
+        return keys
 
     res = PA.solve_ell(*args, torch.zeros(prob.m, dtype=torch.int32), 100,
-                       1, 5, 10_000, combine=fake_combine,
+                       1, 5, 10_000,
+                       combine=types.SimpleNamespace(keys=fake_keys),
                        count_unassigned=lambda s: PA.count_unassigned_rows(
                            s, args[3]),
                        combine_owner=lambda o: o,
