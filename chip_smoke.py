@@ -6,6 +6,7 @@
     python3 chip_smoke.py --probes LABEL  # the probe timings alone
     python3 chip_smoke.py --commit-keys LABEL  # the fused commit alone
     python3 chip_smoke.py --sharded-hybrid LABEL  # phase 13 alone
+    python3 chip_smoke.py --candidates LABEL  # phase 14 alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -226,6 +227,34 @@ of which raises on failure (so the exit code is non-zero):
                  alone and the fused commit once a full-width round (the
                  fused commit also once a phase for the overlapped
                  regime's drain), K2 once a compact exchange round
+ 14. candidates -- the candidate-list engine (engine='candidates'),
+                 calibrate and utils: (a) the 1M headline through
+                 AuctionSolver(mode="hybrid", engine="candidates",
+                 device="cuda"), complete: soln_found, |obj - obj_cpu| <=
+                 n * eps_min against phase 5's mode="cpu" objective, its
+                 device pass (seconds, rounds, phases, rescans, rounds by
+                 tier) beside phase 5's compact pass, the host GS tail,
+                 and its launches against its rounds (K2 once a round,
+                 K1 once a compact-tier round, no ladder); (b) a 20k x
+                 20k square instance (phase 4's), float32 and int32,
+                 modes "hybrid" and "device" with engine="candidates", each
+                 equal to the same solve with device="cpu" bit for bit
+                 (sol, prices, its, phases, host bids, tier_rounds,
+                 rescans), launches checked; (c) K2 over one joint set of
+                 (a) (fast and rescan bids, C + resc_cap entries, from a
+                 tier below the top one) against its plain version, exact,
+                 timed as in phase 3 beside its byte bound (ids and bid
+                 for the bidders alone) and scatter_reduce_ amax; (d) a
+                 torch.profiler window over the headline's candidate
+                 device pass capped at CAND_PROFILE_ROUNDS rounds: K1, K2,
+                 the torch ops and their device time by part of a round
+                 (shortlist bid, rescan, compact rounds, the rest) and the
+                 idle share; (e)
+                 calibrate.measure_host_rate(), measure_gather_ns() and
+                 crossover(force=True) with its cache in a temporary
+                 directory; (f) utils.profile_trace around a cached 20k
+                 candidates solve (the trace holds the annotation and K1's
+                 and K2's kernels) and device_alive()
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
@@ -273,8 +302,17 @@ run.  Phase 13 adds sharded_hybrid_launches to K1's entry (per run of
 (b)-(e); (e): worker 0's process), to K2's (its commit and its resolve
 launch alone, per run) with gathered_* beside ((a): ms, ms_device,
 plain_ms, bound, library_ms), and to the fused commit's (on (b)), with
-the headline's sharded hybrid summary (sharded_hybrid).  The last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+the headline's sharded hybrid summary (sharded_hybrid).  Phase 14 adds
+candidates_launches to K1's and K2's entries (per run: (a)'s headline,
+(b)'s four card runs) and, to K2's, candidates_joint_* ((c): the tier,
+entries, bids, ms, ms_device, plain_ms, bound, library_ms).  The
+profiler windows count device-side events only (a CPU op's device time
+repeats its kernels').  The last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
+
+--candidates LABEL runs only phase 14 (after the single-card hybrid's
+cached solve and the mode="cpu" objective of phase 5) and prints its
+numbers as one line "CANDIDATES LABEL {...}".
 
 --k12 LABEL runs only the K1 and K2 measurements: phase 3's at C = 1M
 (float32; times, bounds, limiters, scatter_reduce_), phase 10's on config 3
@@ -334,6 +372,7 @@ import torch
 from sslap_tpu_torch import AuctionSolver, ELLProblem, _native, from_coo
 from sslap_tpu_torch import auction as A
 from sslap_tpu_torch import batch as BT
+from sslap_tpu_torch import candidate as CD
 from sslap_tpu_torch import compact as C
 from sslap_tpu_torch import dense_batch as DB
 from sslap_tpu_torch import feasibility as F
@@ -978,6 +1017,16 @@ def phase_ladder(inp):
                 compared="whole pass" if whole else "phases 1-3", **bound)
 
 
+def _device_events(prof):
+    """The window's device-side events (kernels, copies, memsets).  A CPU
+    op's self device time is its kernels' time again, so a sum over every
+    event of ``key_averages()`` counts each aten op's kernels twice; a
+    record_function range also shows on the device as its span."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages() if e.device_type != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _idle_share(inp) -> None:
     """torch.profiler over one cached device pass: the device's busy time
     (the sum of its kernels', copies' and memsets' self time) against the
@@ -990,7 +1039,7 @@ def _idle_share(inp) -> None:
         res, _ = headline_device_pass(inp)
         torch.cuda.synchronize()
         window_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    events = _device_events(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
     log(f"[5 headline] profiler, one cached device pass ({res.rounds} "
@@ -2445,7 +2494,7 @@ def _profile_device_chunk(sub):
         _, metas = auction_solve_batched(sub, mode="device", device=DEVICE)
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    events = _device_events(prof)
 
     def device_ms(pred):
         return 1e-3 * sum(e.self_device_time_total for e in events
@@ -2513,7 +2562,7 @@ def _profile_chunk(batch, dev):
         out = run()
         torch.cuda.synchronize()
         window_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    events = _device_events(prof)
     busy = sum(e.self_device_time_total for e in events)
     dk = sum(e.self_device_time_total for e in events
              if "dense_bid_kernel" in e.key)
@@ -2752,7 +2801,7 @@ def _profile_sharded(prob, inp, shards, overlapped=False):
         res = _sharded_run(prob, inp, shards, SHARD_PROFILE_ROUNDS,
                            overlapped)[0]
         window = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    events = _device_events(prof)
 
     def device_ms(pred):
         return 1e-3 * sum(e.self_device_time_total for e in events
@@ -3662,7 +3711,7 @@ def _profile_hybrid(prob, shards=4):
                                                    **su.kw)
         torch.cuda.synchronize()
         window = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    events = _device_events(prof)
 
     def device_ms(pred):
         return 1e-3 * sum(e.self_device_time_total for e in events
@@ -3776,7 +3825,401 @@ def phase_sharded_hybrid(prob, head5):
     return launches, gathered, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the candidate-list engine, calibrate, utils
+# ---------------------------------------------------------------------------
+
+CAND_N = 20_000               # phase 14(b), (f): the square instance
+CAND_PROFILE_ROUNDS = 1200    # phase 14(d): device-pass rounds profiled
+                              # (phase 1 and phase 2's candidate rounds)
+
+
+def _cand_zero() -> None:
+    _reset_ladder_counts()
+    resolve.launches = commit_keys.launches = 0
+
+
+@contextlib.contextmanager
+def _cand_capture(n=None, tiers=()):
+    """Runs of candidate.solve_candidates with their end state kept
+    (``states``), and, with ``n`` and ``tiers``, K2's arguments on one
+    joint set of C + resc_cap entries (a candidate round that rescans),
+    from a tier below the top one where there is such a round, else from
+    the top tier (``joint``)."""
+    real_solve, real_commit = CD.solve_candidates, CD.commit
+    states, joint = [], {}
+    # a phase start's joint set has 2n entries, never one of these
+    sizes = {Ct + max(min(Ct // 2, 8192), 32): Ct for Ct in tiers
+             if Ct > CD.SWITCH}
+
+    def solve(*a, **kw):
+        res, st = real_solve(*a, **kw)
+        states.append(st)
+        return res, st
+
+    def k2(*a):
+        Ct = sizes.get(a[0].shape[0])
+        if Ct is not None and (not joint or (joint["tier"] == n and
+                                             Ct < n)):
+            joint.update(tier=Ct, args=[x.clone() for x in a[:6]])
+        return real_commit(*a)
+
+    CD.solve_candidates, CD.commit = solve, k2
+    try:
+        yield states, joint
+    finally:
+        CD.solve_candidates, CD.commit = real_solve, real_commit
+
+
+def _cand_split(tier_rounds, tiers):
+    """(phase starts, candidate rounds, compact rounds) of a run."""
+    cand = sum(r for r, Ct in zip(tier_rounds[1:], tiers) if Ct > CD.SWITCH)
+    comp = sum(r for r, Ct in zip(tier_rounds[1:], tiers)
+               if Ct <= CD.SWITCH)
+    return tier_rounds[0], cand, comp
+
+
+def _cand_launches(st, its, tiers, what) -> dict:
+    """The launches of one candidate-engine run against its rounds: K2
+    once a round (the joint commit of every phase start and candidate
+    round, the commit of every compact round), K1 once a compact round,
+    no ladder, no resolve launch alone, no fused commit."""
+    starts, cand, comp = _cand_split(st.tier_rounds, tiers)
+    got = dict(bid_topk=bid_topk.launches, commit=commit.launches,
+               ladder=ladder_phase.launches, resolve=resolve.launches,
+               commit_keys=commit_keys.launches)
+    want = dict(bid_topk=comp, commit=its, ladder=0, resolve=0,
+                commit_keys=0)
+    if got != want or starts + cand + comp != its:
+        raise AssertionError(f"[14 candidates] {what}: launches {got}, "
+                             f"want {want} ({starts} phase starts, {cand} "
+                             f"candidate and {comp} compact rounds of "
+                             f"{its})")
+    return dict(got, phase_starts=starts, candidate_rounds=cand,
+                compact_rounds=comp)
+
+
+def _cand_headline(head, head5):
+    """(a) the 1M headline through AuctionSolver(mode='hybrid',
+    engine='candidates', device='cuda'), complete, against phase 5's
+    mode='cpu' objective, launches against rounds; one joint set of K2
+    kept for (c)."""
+    n = head.n
+    tiers = C.default_tiers(n)
+    solver = AuctionSolver(head, mode="hybrid", engine="candidates",
+                           device=DEVICE)
+    with _cand_capture(n, tiers) as (states, joint):
+        _cand_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve()
+        secs = time.perf_counter() - t0
+    m, st = res["meta"], states[-1]
+    gap = abs(m["obj"] - head5["obj_cpu"]) if m["soln_found"] else None
+    bound = n * m["final_eps"]
+    launches = _cand_launches(st, m["its"], tiers, "headline")
+    log(f"[14 candidates] (a) headline, engine='candidates': {secs:.3f} s; "
+        f"device {m['device_time']:.3f} s ({1e3 * m['device_time'] / m['its']:.4f}"
+        f" ms/round; phase 5's compact pass {head5['device_time']:.3f} s "
+        f"for {head5['its']} rounds), readback {m['readback_time']:.4f} s, "
+        f"host GS {m['host_gs_time']:.3f} s ({m['host_bids']} bids); its "
+        f"{m['its']}, phases {m['phases']}, rescans {st.rescans}; "
+        f"tier_rounds {m['tier_rounds']} over tiers {list(tiers)}; "
+        f"|obj - obj_cpu| = {gap!r} <= n * eps_min = {bound!r}")
+    log(f"[14 candidates] (a) launches {launches}")
+    if not (m["soln_found"] and gap <= bound):
+        raise AssertionError("candidates headline: no solution within "
+                             "n * eps_min of mode='cpu'")
+    if not joint:
+        raise AssertionError("candidates headline: no candidate round "
+                             "rescanned")
+    out = dict(seconds=secs, its=m["its"], phases=m["phases"],
+               rescans=st.rescans, tier_rounds=m["tier_rounds"],
+               device_time=m["device_time"],
+               readback_time=m["readback_time"],
+               host_gs_time=m["host_gs_time"], host_bids=m["host_bids"],
+               obj_gap=gap, compact_device_time=head5["device_time"],
+               compact_its=head5["its"], launches=launches)
+    return out, joint
+
+
+def _cand_joint(joint, reps=20):
+    """(c) K2 over the joint set (fast and rescan bids) against its plain
+    version, exact, timed as phase 3 times K2, beside its byte bound and
+    scatter_reduce_ amax."""
+    ids, tgt, bid, prices, owner, sigma = joint["args"]
+    m = prices.shape[0]
+    keys = torch.zeros(m, dtype=torch.int64, device=ids.device)
+    state = lambda: [prices.clone(), owner.clone(),  # noqa: E731
+                     sigma.clone()]
+    got, want = state(), state()
+    out_k = commit(ids, tgt, bid, *got, keys)
+    out_t = commit_plain(ids, tgt, bid, *want)
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(out_k, out_t))
+            and all(_same_bits(a, b) for a, b in zip(got, want))
+            and int(keys.count_nonzero()) == 0):
+        raise AssertionError("candidates joint commit != plain")
+    won, ev, stayed = out_k[2].tolist()
+    run = lambda p, o, s: commit(ids, tgt, bid, p, o, s,  # noqa: E731
+                                 keys)
+    bound, lib_ms = _k2_bound(ids, tgt, bid, prices, owner, sigma, reps)
+    out = dict(tier=joint["tier"], entries=int(ids.shape[0]),
+               bids=int((tgt < m).sum()), won=won,
+               max_abs_err=_abs_err(got[0], want[0]),
+               ms=_median_ms(state, run, reps),
+               ms_device=_device_ms(state, run, reps),
+               plain_ms=_median_ms(state, lambda p, o, s: commit_plain(
+                   ids, tgt, bid, p, o, s), reps),
+               library_ms=lib_ms, **bound)
+    log(f"[14 candidates] (c) K2 over a joint set at tier {joint['tier']}: "
+        f"{out['entries']} entries ({out['bids']} bids: {won} won, {ev} "
+        f"evicted, {stayed} stayed), exact; {out['ms']:.4f} ms (back to "
+        f"back {out['ms_device']:.4f}), plain {out['plain_ms']:.4f} ms, "
+        f"scatter_reduce_ amax {lib_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_bytes']} bytes; "
+        f"{out['bound_ms'] / out['ms_device']:.1%} back to back)")
+    return out
+
+
+def _cand_parity():
+    """(b) CAND_N square (phase 4's instance), float32 and int32, modes
+    'hybrid' and 'device' with engine='candidates': CUDA equal to the CPU
+    bit for bit (sol, prices, its, phases, host bids, tier_rounds), the
+    card's launches checked."""
+    n = CAND_N
+    rr, cc, vv = make_instance(n, n, 9, seed=1)
+    loc = np.stack([rr, cc], 1)
+    tiers = C.default_tiers(n)
+    out = {}
+    for name, val in (("float32", vv),
+                      ("int32", np.round(vv).astype(np.int64))):
+        for mode in ("hybrid", "device"):
+            runs = {}
+            for device in (DEVICE, "cpu"):
+                with _cand_capture() as (states, _):
+                    _cand_zero()
+                    t0 = time.perf_counter()
+                    res = AuctionSolver(loc=loc, val=val, shape=(n, n),
+                                        mode=mode, engine="candidates",
+                                        device=device).solve()
+                    secs = time.perf_counter() - t0
+                if device == DEVICE:
+                    launches = _cand_launches(states[-1], res["meta"]["its"],
+                                              tiers, f"{n} {name} {mode}")
+                runs[device] = (res, states[-1], secs)
+            (g, gs, g_s), (c, cs, c_s) = runs[DEVICE], runs["cpu"]
+            gm, cm = g["meta"], c["meta"]
+            keys = [k for k in ("its", "phases", "host_bids", "tier_rounds",
+                                "final_eps", "obj") if k in gm]
+            same = (np.array_equal(g["sol"], c["sol"])
+                    and np.array_equal(g["prices"].view(np.int32),
+                                       c["prices"].view(np.int32))
+                    and all(gm[k] == cm[k] for k in keys)
+                    and gs.tier_rounds == cs.tier_rounds
+                    and gs.rescans == cs.rescans and gm["soln_found"])
+            log(f"[14 candidates] (b) {n}x{n} {name} mode={mode!r}: CUDA "
+                f"{g_s:.3f} s, CPU {c_s:.3f} s; its {gm['its']}, phases "
+                f"{gm['phases']}, rescans {gs.rescans}, tier_rounds "
+                f"{gs.tier_rounds}; CUDA == CPU (sol, prices bits, "
+                f"{', '.join(keys)}, rescans): {same}")
+            if not same:
+                raise AssertionError(f"candidates {name} {mode}: CUDA != CPU")
+            out[f"{name}_{mode}"] = dict(
+                cuda_s=g_s, cpu_s=c_s, its=gm["its"], rescans=gs.rescans,
+                tier_rounds=gs.tier_rounds, launches=launches)
+    return out
+
+
+@contextlib.contextmanager
+def _cand_sections():
+    """The candidate engine's parts as named profiler ranges (only in
+    here): the shortlist bid, the rescan (its top-k sort included), a
+    compact-tier round.  The profiler ties a kernel to the torch op that
+    launched it, so a range holds its torch ops' kernels, not K1's and
+    K2's (launched through ctypes), which are counted by name."""
+    real = {k: getattr(CD, k) for k in ("_fast_bids", "_rescan",
+                                        "kernel_round")}
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    for k, fn in real.items():
+        setattr(CD, k, ranged("cand:" + k.strip("_"), fn))
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(CD, k, fn)
+
+
+def _cand_profile(head):
+    """(d) torch.profiler over the headline's candidate device pass as the
+    hybrid sets it up (candidate.solve_candidates: default ladder, trunc
+    256, host bigp), capped at CAND_PROFILE_ROUNDS rounds: K1's, K2's and
+    the torch ops' device time, that of the torch ops by part (the
+    shortlist bid, the rescan, the compact-tier rounds, the rest:
+    relists, row gathers, counts), the largest kernels by name, and the
+    idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    solver = AuctionSolver(head, mode="hybrid", device=DEVICE)
+    inp = headline_inputs(solver)
+    cols_d, vals_d, nvalid_d = inp["ell"]
+    args = (cols_d, vals_d, nvalid_d,
+            torch.zeros(inp["m"], device=cols_d.device), inp["e0"],
+            inp["e_min"], inp["theta"], CAND_PROFILE_ROUNDS)
+    kw = dict(bigp=inp["bigp"], trunc=inp["trunc"])
+    CD.solve_candidates(*args, **kw)              # warm up, unprofiled
+    torch.cuda.synchronize()
+    with _cand_sections(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res, st = CD.solve_candidates(*args, **kw)
+        torch.cuda.synchronize()
+        window = 1e3 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    from torch.autograd import DeviceType
+    sections = {}
+    for e in prof.events():
+        # the host-side range: the device time of the kernels launched in it
+        if e.name.startswith("cand:") and e.device_type == DeviceType.CPU:
+            sections[e.name[5:]] = sections.get(e.name[5:], 0.0) + \
+                1e-3 * e.device_time_total
+    events = [e for e in _device_events(prof)
+              if e.self_device_time_total and not e.key.startswith("cand:")]
+
+    def device_ms(pred):
+        return 1e-3 * sum(e.self_device_time_total for e in events
+                          if pred(e.key))
+
+    k1 = device_ms(lambda k: "bid_kernel<" in k and "dense" not in k)
+    k2 = device_ms(lambda k: "resolve_kernel<" in k or
+                   "commit_kernel<" in k)
+    busy = device_ms(lambda k: True)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    tops = [(e.key[:60], 1e-3 * e.self_device_time_total, e.count)
+            for e in top]
+    starts, cand, comp = _cand_split(st.tier_rounds, C.default_tiers(
+        inp["n"]))
+    sections["rest"] = busy - k1 - k2 - sum(sections.values())
+    out = dict(rounds=res.rounds, phase_starts=starts,
+               candidate_rounds=cand, compact_rounds=comp,
+               rescans=st.rescans, window_ms=window,
+               round_ms=window / res.rounds, busy_ms=busy, k1_ms=k1,
+               k2_ms=k2, torch_ops_ms=busy - k1 - k2,
+               idle_share=1 - busy / window, sections_ms=sections, top=tops,
+               analysis_s=time.perf_counter() - t1)
+    log(f"[14 candidates] (d) profiler, the headline's first {res.rounds} "
+        f"rounds ({starts} phase starts, {cand} candidate, {comp} compact; "
+        f"rescans {st.rescans}): window {window:.1f} ms "
+        f"({out['round_ms']:.3f} ms a round); device busy {busy:.2f} ms: "
+        f"K1 {k1:.2f} ms, K2 {k2:.2f} ms, torch ops "
+        f"{out['torch_ops_ms']:.2f} ms; idle share {out['idle_share']:.3f}; "
+        f"torch ops by part: " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                 sections.items()) + "; top kernels: "
+        + ", ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in tops))
+    return out
+
+
+def _cand_calibrate():
+    """(e) calibrate's measurements on this machine, and crossover(force=
+    True) with its cache in a temporary directory."""
+    import tempfile
+    from sslap_tpu_torch import calibrate as CAL
+    t0 = time.perf_counter()
+    host = CAL.measure_host_rate()
+    gather = CAL.measure_gather_ns()
+    real_path, real_cached = CAL._cache_path, CAL._cached
+    with tempfile.TemporaryDirectory() as tmp:
+        CAL._cache_path = lambda: os.path.join(tmp, "calib.json")
+        try:
+            cross = CAL.crossover(force=True)
+            with open(CAL._cache_path()) as f:
+                blob = json.load(f)
+        finally:
+            CAL._cache_path, CAL._cached = real_path, real_cached
+    out = dict(host_bids_per_s=host, gather_ns=gather, crossover=cross,
+               subprocess_gather_ns=blob["gather_ns"],
+               subprocess_host_bids_per_s=blob["host_bids_per_s"],
+               device_kind=blob["device_kind"],
+               ref_host_bids_per_s=CAL.REF_HOST_BIDS_PER_S,
+               ref_gather_ns=CAL.REF_GATHER_NS,
+               seconds=time.perf_counter() - t0)
+    log(f"[14 candidates] (e) calibrate: measure_host_rate {host!r} bids/s, "
+        f"measure_gather_ns {gather!r} ns; crossover(force=True) {cross} "
+        f"(its subprocess: {blob['device_kind']}, {blob['gather_ns']!r} ns, "
+        f"host {blob['host_bids_per_s']!r} bids/s; REF "
+        f"{CAL.REF_HOST_BIDS_PER_S!r} bids/s, {CAL.REF_GATHER_NS!r} ns)")
+    if not (host > 0 and gather > 0 and blob["device_kind"] != "nodevice"
+            and 10_000 <= cross <= 50_000_000):
+        raise AssertionError("calibrate measured nothing on the card")
+    return out
+
+
+def _cand_trace():
+    """(f) profile_trace around a cached CAND_N candidates solve: the
+    Chrome trace holds the annotation and K1's and K2's kernels; and
+    device_alive() answers True."""
+    import tempfile
+    from sslap_tpu_torch.utils import device_alive, profile_trace, \
+        trace_annotation
+    n = CAND_N
+    rr, cc, vv = make_instance(n, n, 9, seed=1)
+    solver = AuctionSolver(loc=np.stack([rr, cc], 1), val=vv, shape=(n, n),
+                           mode="hybrid", engine="candidates", device=DEVICE)
+    first = solver.solve()
+    name = "sslap_candidates_cached_solve"
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            with trace_annotation(name):
+                again = solver.solve()
+        files = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        with open(os.path.join(tmp, files[0])) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = {k: any(pat in e for e in names) for k, pat in (
+        ("annotation", name), ("bid_topk", "bid_kernel<"),
+        ("commit", "commit_kernel<"))}
+    alive = device_alive()
+    same = np.array_equal(first["sol"], again["sol"])
+    log(f"[14 candidates] (f) profile_trace around a cached {n}x{n} "
+        f"candidates solve: {len(names)} event names; holds {kernels}; "
+        f"cached == cold: {same}; device_alive() {alive}")
+    if not (all(kernels.values()) and alive and same):
+        raise AssertionError("profile_trace / device_alive failed")
+    return dict(trace_holds=kernels, device_alive=alive)
+
+
+def phase_candidates(head, head5):
+    """Phase 14: (a)-(f); returns its summary and the kernels-line
+    additions of K1 and K2."""
+    t0 = time.perf_counter()
+    out = {}
+    out["headline"], joint = _cand_headline(head, head5)
+    out["joint"] = _cand_joint(joint)
+    del joint
+    out["profile"] = _cand_profile(head)
+    out["parity"] = _cand_parity()
+    out["calibrate"] = _cand_calibrate()
+    out["trace"] = _cand_trace()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[14 candidates] phase 14: {out['seconds']:.1f} s")
+    runs = dict(headline=out["headline"]["launches"],
+                **{k: v["launches"] for k, v in out["parity"].items()})
+    extra = {
+        "bid_topk": dict(candidates_launches={
+            k: v["bid_topk"] for k, v in runs.items()}),
+        "commit": dict(candidates_launches={
+            k: v["commit"] for k, v in runs.items()},
+            **{f"candidates_joint_{k}": v for k, v in out["joint"].items()}),
+    }
+    return out, extra
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     errs, times = phase_kernels()
@@ -3795,6 +4238,7 @@ def main() -> None:
     dk, k1b, k2b, prof, hy_launches, dev_launches = phase_batch()
     sh_launches, sh_prof, sh_resolve, ov = phases_sharded(head)
     hy_runs, gathered, hy_summary = phase_sharded_hybrid(head, head5)
+    cand, cand_extra = phase_candidates(head, head5)
     del head
     # the batched paths of K1 (mode='device') and K2 (both batched modes),
     # and each one's device time in one mode='device' call (profiler)
@@ -3837,7 +4281,7 @@ def main() -> None:
             ms_device=times[name + "_device"],
             plain_ms=times[name + "_plain"], **times["bounds"][name],
             library_ms=times["library"][name], **times["limiters"][name],
-            **batched[name]))
+            **batched[name], **cand_extra[name]))
     name = "gs_auction_device"
     kernels.append(dict(
         name=name, **KERNELS[name], launches=k3["launches"],
@@ -3872,6 +4316,8 @@ def main() -> None:
         sharded_hybrid_launches={k: hy_runs[k]["commit_keys"] for k in
                                  ("headline_1", "headline_4")},
         sharded_hybrid=hy_summary))
+    log(f"[chip_smoke] whole run {time.perf_counter() - t_start:.1f} s "
+        f"(phase 14: {cand['seconds']:.1f} s) of the 1200 s limit")
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3974,6 +4420,30 @@ def sharded_hybrid_timing(label: str) -> None:
         flush=True)
 
 
+def candidates_timing(label: str) -> None:
+    """--candidates LABEL: phase 14 alone (with the single-card hybrid's
+    cached solve and the mode='cpu' objective it is held to, as phase 5
+    gives them), printed as one line "CANDIDATES LABEL {...}" (numbers
+    unrounded)."""
+    phase_device()
+    phase_build()
+    solver, loc, vv = headline_solver()
+    n = solver.problem_spec.n
+    solver.solve()
+    warm = solver.solve()
+    cpu = AuctionSolver(loc=loc, val=vv, shape=(n, n), mode="cpu",
+                        cardinality_check=False).solve()
+    head5 = dict(obj_cpu=cpu["meta"]["obj"],
+                 device_time=warm["meta"]["device_time"],
+                 its=warm["meta"]["its"])
+    head = solver.problem_spec
+    del solver
+    out, _ = phase_candidates(head, head5)
+    print("CANDIDATES", label, json.dumps(
+        {"tree": os.path.dirname(os.path.abspath(__file__)), **out}),
+        flush=True)
+
+
 def probes(label: str) -> None:
     """--probes LABEL: phase 9's timings alone
     (probe_timings), each kernel checked on the way, printed as one line
@@ -3994,6 +4464,8 @@ if __name__ == "__main__":
         k3(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--sharded-hybrid":
         sharded_hybrid_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--candidates":
+        candidates_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--commit-keys":
         commit_keys_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-cpu":

@@ -8,8 +8,12 @@ mode, the native CPU mode, the batched solves of many independent
 instances (``auction_solve_batched`` over ``stack_problems`` /
 ``batch_from_dense``), ``hopcroft_solve``, ``linear_sum_assignment``,
 the device Gauss-Seidel op ``gs_auction_device``, the device greedy seed
-of the Hopcroft-Karp check (``feasibility_device``) and the row-sharded
-Jacobi solve over a mesh of devices (``parallel``, single process).
+of the Hopcroft-Karp check (``feasibility_device``), the sharded,
+overlapped and sharded hybrid solves over a mesh of devices
+(``parallel``), the candidate-list engine (``engine='candidates'``,
+``candidate``), the auto mode's calibration (``calibrate``) and
+checkpoints, tracing and a liveness probe (``utils``).  As in the
+reference, those modules are imported by name, not re-exported here.
 ``sslap_tpu`` (JAX) stays the reference; this package imports torch and
 numpy, never jax.
 """

@@ -5,10 +5,7 @@ in either package.
     cfg = AuctionConfig(problem="max", mode="cpu")
     res = auction_solve(mat, config=cfg)
 
-Explicit kwargs always override the config's values.  The engine that
-the port does not carry yet ('candidates') is accepted here (the config
-is a plain bundle) and refused by ``AuctionSolver`` with
-NotImplementedError.
+Explicit kwargs always override the config's values.
 """
 
 from __future__ import annotations

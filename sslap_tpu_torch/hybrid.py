@@ -20,9 +20,14 @@ step on the device (``_device_phase``: K1/K2 and a torch sort) until <=
 ``threshold`` rows and dummies are unplaced, then the native forward GS
 with its dummy price heap finishes the phase on the host.
 
+``engine='candidates'`` swaps the square device pass for the
+candidate-list engine (``candidate.solve_candidates``: shortlist rounds
+above 4096 active rows, K1 + K2 compact rounds below, every phase
+truncated at ``trunc``) over the same cached rows, with the reference's
+default ladder and no mixed tail; the host tail is the same.
+
 ``mode='cpu'`` skips the device: a native Gauss-Seidel eps-scaled solve,
-the sslap-class CPU reference.  ``engine='candidates'`` is not ported yet
-(ROADMAP.md, queue 1).
+the sslap-class CPU reference.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from sslap_tpu_torch import _native
 from sslap_tpu_torch import auction as _auction
+from sslap_tpu_torch import candidate as _candidate
 from sslap_tpu_torch import compact as _compact
 from sslap_tpu_torch.ingest import ELLProblem
 
@@ -246,9 +252,6 @@ def solve_hybrid(
     n_real = n if n_real is None else n_real
     n_dummy = m - n_real
     square_hybrid = mode == "hybrid" and n_dummy == 0
-    if square_hybrid and engine != "compact":
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP.md, queue 1)")
     # per-mode defaults: the device schedule (and its mixed tail) on the
     # square hybrid, the sslap-class schedule everywhere else
     if theta is None:
@@ -310,6 +313,17 @@ def solve_hybrid(
         t0 = time.perf_counter()
         cache_key, (cols_d, vals_d, nvalid_d) = _device_ell(
             prob, tr, dev, device_cache)
+    if square_hybrid and engine == "candidates":
+        # the reference's non-compact square path: default_tiers(n), no
+        # mixed tail, the host bigp; the cached rows are already masked,
+        # as the engine masks its values
+        res, st = _candidate.solve_candidates(
+            cols_d, vals_d, nvalid_d, torch.from_numpy(prices).to(dev), e0,
+            e_min, theta_v, max_iter, bigp=bigp,
+            trunc=min(int(trunc), max(n // 8, 1)))
+        return _finish_square_fast_path(
+            res, st.tier_rounds, indptr, indices, data, owner, e_min, bigp,
+            tr, n, mode, t0, t0, csc=csc)
     if square_hybrid:
         t_dev0 = t0
         trunc_static = min(int(trunc), max(n // 8, 1))

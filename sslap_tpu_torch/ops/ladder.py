@@ -31,8 +31,8 @@ import torch
 
 from sslap_tpu_torch.auction import half_neg, neg_sentinel
 from sslap_tpu_torch.ops import _build
-from sslap_tpu_torch.ops.bid import _scalar, bid_topk_plain
-from sslap_tpu_torch.ops.commit import commit_plain
+from sslap_tpu_torch.ops.bid import _scalar, bid_topk, bid_topk_plain
+from sslap_tpu_torch.ops.commit import commit, commit_plain
 
 MAX_TIERS = 63      # tiers the kernel's histogram holds
 _FIXED = 8          # out[]: rounds, active, grid/tail rounds, grid/tail ns,
@@ -54,6 +54,20 @@ def compact_round(cols, vals_m, nvalid, prices, owner, sigma, ids, eps, bigp,
     tgt, bid = bid_topk_plain(ids, cols, vals_m, nvalid, prices, sigma,
                               owner, eps, bigp, phase_start=phase_start)
     stay, evicted, counts = commit_plain(ids, tgt, bid, prices, owner, sigma)
+    new_ids = torch.sort(torch.cat([stay, evicted])).values[:ids.shape[0]]
+    return new_ids, counts
+
+
+def kernel_round(cols, vals_m, nvalid, prices, owner, sigma, ids, eps, bigp,
+                 keys=None):
+    """``compact_round`` (no phase start) through the dispatching wrappers:
+    K1 (``bid_topk``) and K2 (``commit``, ``keys`` its [m] int64 scratch)
+    launch on CUDA tensors and run their plain versions on the CPU, so the
+    result is ``compact_round``'s either way.  The candidate engine's
+    compact tiers run it."""
+    tgt, bid = bid_topk(ids, cols, vals_m, nvalid, prices, sigma, owner, eps,
+                        bigp)
+    stay, evicted, counts = commit(ids, tgt, bid, prices, owner, sigma, keys)
     new_ids = torch.sort(torch.cat([stay, evicted])).values[:ids.shape[0]]
     return new_ids, counts
 

@@ -173,16 +173,46 @@ def test_infeasible_raises():
     assert issubclass(P.InfeasibleError, ValueError)
 
 
+_TIMERS = ("time", "device_time", "readback_time", "host_gs_time")
+# the sharded hybrid's meta keys that do not depend on the shard count
+_SHARD_FREE = ("its", "host_bids", "phases", "final_eps", "unassigned",
+               "soln_found", "obj", "mode")
+
+
 @pytest.mark.parametrize("kw", [
     dict(engine="candidates", mode="sharded_hybrid"),
     dict(engine="candidates"), dict(engine="candidates", mode="hybrid"),
     dict(engine="candidates", mode="device"),
 ])
-def test_unported_modes_and_engines_raise(kw):
-    loc, val = _instance(12, 50, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.AuctionSolver(loc=loc, val=val, shape=(50, 50), device="cpu",
-                        **kw).solve()
+def test_candidates_engine_matches_reference(kw):
+    """engine='candidates' (formerly refused) through AuctionSolver and
+    auction_solve equals the reference's: sol, prices bits and every meta
+    key but the timers, min and max, integer and float32 costs.  'auto'
+    routes this size to 'cpu' in both packages, and 'sharded_hybrid'
+    ignores the engine (the reference runs it on eight virtual devices,
+    the port on one CPU shard, so there the keys that depend on the shard
+    count are left out)."""
+    n = 300
+    for problem in ("min", "max"):
+        for integer in (True, False):
+            loc, val = _instance(12 + integer, n, integer)
+            args = dict(loc=loc, val=val, shape=(n, n), problem=problem,
+                        **kw)
+            r = R.AuctionSolver(**args).solve()
+            outs = (P.AuctionSolver(**args, device="cpu").solve(),
+                    P.auction_solve(**args, device="cpu"))
+            for p in outs:
+                np.testing.assert_array_equal(p["sol"], r["sol"])
+                assert p["prices"].dtype == r["prices"].dtype
+                np.testing.assert_array_equal(_bits(p["prices"]),
+                                              _bits(r["prices"]))
+                assert set(p["meta"]) == set(r["meta"])
+                keys = set(r["meta"]) - set(_TIMERS)
+                if kw.get("mode") == "sharded_hybrid":
+                    keys = _SHARD_FREE
+                for k in keys:
+                    assert p["meta"][k] == r["meta"][k], k
+                assert p["meta"]["soln_found"], (problem, integer)
 
 
 def test_mode_sharded_hybrid_solves_as_the_reference():

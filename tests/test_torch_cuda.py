@@ -1345,3 +1345,62 @@ def test_sharded_hybrid_on_one_card_matches_cpu(dev, shards):
                 assert mt[k] == v, k
         if kw["loc"] is c_loc and shards > 1:
             assert mt["ladder_rebuilds"] >= 1
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_candidates_on_one_card_matches_cpu(dev, integer):
+    """engine='candidates' on the card (the shortlist bid and rescan as
+    torch ops, K2 over every joint set, K1 + K2 in the compact tiers)
+    against the same solve on the CPU, n = 6000 (above the 4096 switch),
+    modes 'hybrid' (trunc) and 'device' (complete): sol, prices bits and
+    the meta equal; K2 launches once a round, K1 once a compact-tier
+    round."""
+    from sslap_tpu_torch import candidate as PCD
+    n = 6000
+    rng = np.random.default_rng(21)
+    rr = np.concatenate([np.repeat(np.arange(n), 8), np.arange(n),
+                         np.repeat(np.arange(n), 6)])
+    cc = np.concatenate([rng.integers(0, n, n * 8), rng.permutation(n),
+                         rng.integers(0, 256, 6 * n) * 7])
+    _, idx = np.unique(rr * n + cc, return_index=True)
+    rr, cc = rr[idx], cc[idx]
+    step = rng.integers(0, 100, len(idx))
+    cost = np.where((cc % 7 == 0) & (cc < 256 * 7), 0, 1000) + step
+    val = cost if integer else (cost * 0.5).astype(np.float32)
+    loc = np.stack([rr, cc], 1)
+    tiers = PC.default_tiers(n)
+    states = []
+    real = PCD.solve_candidates
+
+    def keep(*a, **kw):
+        out = real(*a, **kw)
+        states.append(out[1])
+        return out
+
+    PCD.solve_candidates = keep
+    try:
+        for mode in ("hybrid", "device"):
+            bid_topk.launches = commit.launches = 0
+            args = dict(loc=loc, val=val, shape=(n, n), mode=mode,
+                        engine="candidates")
+            card = P.AuctionSolver(**args, device="cuda").solve()
+            torch.cuda.synchronize()
+            k1, k2 = bid_topk.launches, commit.launches
+            host = P.AuctionSolver(**args, device="cpu").solve()
+            st, st_cpu = states[-2], states[-1]
+            np.testing.assert_array_equal(card["sol"], host["sol"])
+            np.testing.assert_array_equal(card["prices"].view(np.int32),
+                                          host["prices"].view(np.int32))
+            for k in ("its", "phases", "host_bids", "tier_rounds", "obj",
+                      "final_eps", "soln_found"):
+                assert card["meta"].get(k) == host["meta"].get(k), k
+            assert st.tier_rounds == st_cpu.tier_rounds
+            assert st.rescans == st_cpu.rescans
+            compact = sum(r for r, C in zip(st.tier_rounds[1:], tiers)
+                          if C <= PCD.SWITCH)
+            assert sum(r for r, C in zip(st.tier_rounds[1:], tiers)
+                       if C > PCD.SWITCH) > 0
+            assert (k1, k2) == (compact, card["meta"]["its"])
+            assert card["meta"]["soln_found"]
+    finally:
+        PCD.solve_candidates = real
