@@ -7,6 +7,7 @@
     python3 chip_smoke.py --commit-keys LABEL  # the fused commit alone
     python3 chip_smoke.py --sharded-hybrid LABEL  # phase 13 alone
     python3 chip_smoke.py --candidates LABEL  # phase 14 alone
+    python3 chip_smoke.py --tracking LABEL    # phase 15 alone
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -238,8 +239,9 @@ of which raises on failure (so the exit code is non-zero):
                  K1 once a compact-tier round, no ladder); (b) a 20k x
                  20k square instance (phase 4's), float32 and int32,
                  modes "hybrid" and "device" with engine="candidates", each
-                 equal to the same solve with device="cpu" bit for bit
-                 (sol, prices, its, phases, host bids, tier_rounds,
+                 equal to the same solve with device="cpu" (a child,
+                 --candidates-cpu, started at the phase's start) bit for
+                 bit (sol, prices, its, phases, host bids, tier_rounds,
                  rescans), launches checked; (c) K2 over one joint set of
                  (a) (fast and rescan bids, C + resc_cap entries, from a
                  tier below the top one) against its plain version, exact,
@@ -255,6 +257,31 @@ of which raises on failure (so the exit code is non-zero):
                  directory; (f) utils.profile_trace around a cached 20k
                  candidates solve (the trace holds the annotation and K1's
                  and K2's kernels) and device_alive()
+ 15. tracking -- the tracking workload and the examples
+                 (sslap_tpu_torch.benchmarks.tracking, .examples): (a)
+                 families A (value drift, chained warm prices, eps_start =
+                 4 sigma), C (sigma 0.5, 4 frames) and B (pattern churn:
+                 warm Hopcroft-Karp from the previous matching, then the
+                 FR-tightened warm solve) at the 1M headline, TRACK_FRAMES
+                 frames, mode="hybrid" on the card, --warm fr,
+                 --gs-engine forward: every frame soln_found, each warm
+                 frame's objective within n * eps_min of the same frame's
+                 cold one, per frame one ladder launch per phase and no
+                 other launch; per frame its record, the solve's device /
+                 readback / host GS seconds, phases, rounds, tier_rounds,
+                 hk_s, fell_back, peak and resident device memory; per
+                 family frames/s cold and warm and the peak; (b) the same
+                 chains at TRACK_PARITY_N with device="cuda" and "cpu",
+                 equal frame for frame (records but timers, sol, prices
+                 bits, its, phases, host bids, soln_found, fell_back); (c)
+                 the examples: basic on the card == device="cpu";
+                 tracking (mode="device", 5 warm-chained frames at
+                 EX_TRACK_N) bit for bit against device="cpu" (a child,
+                 --tracking-cpu, started at the phase's start, one torch
+                 thread), warm rounds below cold on frame 1, one ladder
+                 launch per phase; distributed on make_mesh() and on
+                 [cuda] * 4 with its asserts (sharded == single, overlap
+                 and ladder_balance give the hybrid's objective)
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
@@ -305,10 +332,18 @@ plain_ms, bound, library_ms), and to the fused commit's (on (b)), with
 the headline's sharded hybrid summary (sharded_hybrid).  Phase 14 adds
 candidates_launches to K1's and K2's entries (per run: (a)'s headline,
 (b)'s four card runs) and, to K2's, candidates_joint_* ((c): the tier,
-entries, bids, ms, ms_device, plain_ms, bound, library_ms).  The
+entries, bids, ms, ms_device, plain_ms, bound, library_ms).  Phase 15
+adds tracking_launches to the ladder's entry ((a): per family and frame
+kind), with tracking_parity_launches ((b)'s card run) and
+tracking_example_launches, and distributed_example_launches to K1's, K2's
+(commit and resolve) and the fused commit's (per mesh of (c)).  The
 profiler windows count device-side events only (a CPU op's device time
 repeats its kernels').  The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
+
+--tracking LABEL runs only phase 15 and prints its numbers as one line
+"TRACKING LABEL {...}"; --tracking-cpu PATH is its child (the tracking
+example with device="cpu", saved to PATH).
 
 --candidates LABEL runs only phase 14 (after the single-card hybrid's
 cached solve and the mode="cpu" objective of phase 5) and prints its
@@ -338,7 +373,7 @@ ladder_inputs has no first= skips the conflict instances).
 
 --sharded-cpu PATH is phase 11's child: its solves on CPU meshes, saved to
 PATH (npz); --overlapped-cpu PATH is phase 12's, --sharded-hybrid-cpu
-PATH phase 13's.
+PATH phase 13's, --candidates-cpu PATH phase 14's.
 
 --sharded-hybrid LABEL runs only phase 13 (after the single-card hybrid's
 cold and cached solves and the mode="cpu" objective of phase 5) and prints
@@ -381,6 +416,13 @@ from sslap_tpu_torch import hybrid as H
 from sslap_tpu_torch import parallel as PP
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.batch import auction_solve_batched, stack_problems
+from sslap_tpu_torch.benchmarks import tracking as TR
+# bench.make_instance's copy (bench.py imports jax); time_headline.py
+# imports it from here
+from sslap_tpu_torch.benchmarks.tracking import make_instance
+from sslap_tpu_torch.examples import basic as EXB
+from sslap_tpu_torch.examples import distributed as EXD
+from sslap_tpu_torch.examples import tracking as EXT
 from sslap_tpu_torch.ops import _build, bid_topk, bid_topk_batched, \
     bid_topk_batched_plain, bid_topk_plain, commit, commit_plain, dense_bid, \
     dense_bid_plain, gs_auction_device, gs_auction_plain, ladder_phase, \
@@ -445,22 +487,6 @@ SHARD_RECT_ROUNDS = 1000      # this many rounds (the full-width
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-def make_instance(n, m, k_extra, seed=0, low=1.0, high=1000.0):
-    """Copy of bench.make_instance (bench.py imports jax): k_extra random
-    columns per row plus a planted permutation, float32 costs."""
-    rng = np.random.default_rng(seed)
-    rows = np.repeat(np.arange(n, dtype=np.int64), k_extra)
-    cols = rng.integers(0, m, n * k_extra, dtype=np.int64)
-    perm = rng.permutation(m)[:n].astype(np.int64)
-    rr = np.concatenate([rows, np.arange(n, dtype=np.int64)])
-    cc = np.concatenate([cols, perm])
-    key = rr * m + cc
-    _, idx = np.unique(key, return_index=True)
-    rr, cc = rr[idx], cc[idx]
-    vv = (rng.random(rr.shape[0]) * (high - low) + low).astype(np.float32)
-    return rr, cc, vv
 
 
 def make_sparse(n, m, nnz_per_row, seed=0, high=1000, integer=True):
@@ -3982,52 +4008,79 @@ def _cand_joint(joint, reps=20):
     return out
 
 
-def _cand_parity():
-    """(b) CAND_N square (phase 4's instance), float32 and int32, modes
-    'hybrid' and 'device' with engine='candidates': CUDA equal to the CPU
-    bit for bit (sol, prices, its, phases, host bids, tier_rounds), the
-    card's launches checked."""
+def _cand_parity_solves(device):
+    """(b)'s four solves on ``device``: CAND_N square (phase 4's
+    instance), float32 and int32, modes 'hybrid' and 'device' with
+    engine='candidates'.  Yields (name, result, end state, seconds,
+    launches); the launches are checked on the card (None on the CPU)."""
     n = CAND_N
     rr, cc, vv = make_instance(n, n, 9, seed=1)
     loc = np.stack([rr, cc], 1)
     tiers = C.default_tiers(n)
-    out = {}
     for name, val in (("float32", vv),
                       ("int32", np.round(vv).astype(np.int64))):
         for mode in ("hybrid", "device"):
-            runs = {}
-            for device in (DEVICE, "cpu"):
-                with _cand_capture() as (states, _):
-                    _cand_zero()
-                    t0 = time.perf_counter()
-                    res = AuctionSolver(loc=loc, val=val, shape=(n, n),
-                                        mode=mode, engine="candidates",
-                                        device=device).solve()
-                    secs = time.perf_counter() - t0
-                if device == DEVICE:
-                    launches = _cand_launches(states[-1], res["meta"]["its"],
-                                              tiers, f"{n} {name} {mode}")
-                runs[device] = (res, states[-1], secs)
-            (g, gs, g_s), (c, cs, c_s) = runs[DEVICE], runs["cpu"]
-            gm, cm = g["meta"], c["meta"]
-            keys = [k for k in ("its", "phases", "host_bids", "tier_rounds",
-                                "final_eps", "obj") if k in gm]
-            same = (np.array_equal(g["sol"], c["sol"])
-                    and np.array_equal(g["prices"].view(np.int32),
-                                       c["prices"].view(np.int32))
-                    and all(gm[k] == cm[k] for k in keys)
-                    and gs.tier_rounds == cs.tier_rounds
-                    and gs.rescans == cs.rescans and gm["soln_found"])
-            log(f"[14 candidates] (b) {n}x{n} {name} mode={mode!r}: CUDA "
-                f"{g_s:.3f} s, CPU {c_s:.3f} s; its {gm['its']}, phases "
-                f"{gm['phases']}, rescans {gs.rescans}, tier_rounds "
-                f"{gs.tier_rounds}; CUDA == CPU (sol, prices bits, "
-                f"{', '.join(keys)}, rescans): {same}")
-            if not same:
-                raise AssertionError(f"candidates {name} {mode}: CUDA != CPU")
-            out[f"{name}_{mode}"] = dict(
-                cuda_s=g_s, cpu_s=c_s, its=gm["its"], rescans=gs.rescans,
-                tier_rounds=gs.tier_rounds, launches=launches)
+            with _cand_capture() as (states, _):
+                _cand_zero()
+                t0 = time.perf_counter()
+                res = AuctionSolver(loc=loc, val=val, shape=(n, n),
+                                    mode=mode, engine="candidates",
+                                    device=device).solve()
+                secs = time.perf_counter() - t0
+            launches = None
+            if device != "cpu":
+                launches = _cand_launches(states[-1], res["meta"]["its"],
+                                          tiers, f"{n} {name} {mode}")
+            yield f"{name}_{mode}", res, states[-1], secs, launches
+
+
+_CAND_KEYS = ("its", "phases", "host_bids", "tier_rounds", "final_eps",
+              "obj", "soln_found")
+
+
+def candidates_cpu(path: str) -> None:
+    """--candidates-cpu PATH: phase 14(b)'s solves with device='cpu' (the
+    kernels' plain versions), saved to PATH (npz) for the card run to
+    compare with."""
+    out = {}
+    for key, res, st, secs, _ in _cand_parity_solves("cpu"):
+        out[key + "_sol"] = res["sol"]
+        out[key + "_prices"] = res["prices"]
+        out[key + "_meta"] = np.array(json.dumps(dict(
+            {k: res["meta"][k] for k in _CAND_KEYS if k in res["meta"]},
+            state_tier_rounds=list(st.tier_rounds), rescans=st.rescans,
+            seconds=secs)))
+        log(f"[14 cpu] {key}: {secs:.1f} s, its {res['meta']['its']}")
+    np.savez(path, **out)
+
+
+def _cand_parity(cpu):
+    """(b): each card solve equal to the CPU child's (``cpu``, the npz of
+    --candidates-cpu) bit for bit: sol, prices, its, phases, host bids,
+    tier_rounds, final_eps, obj, rescans; the card's launches checked."""
+    n = CAND_N
+    out = {}
+    for key, g, gs, g_s, launches in _cand_parity_solves(DEVICE):
+        gm = g["meta"]
+        cm = json.loads(str(cpu[key + "_meta"]))
+        keys = [k for k in _CAND_KEYS[:-1] if k in gm]
+        same = (np.array_equal(g["sol"], cpu[key + "_sol"])
+                and np.array_equal(g["prices"].view(np.int32),
+                                   cpu[key + "_prices"].view(np.int32))
+                and all(gm[k] == cm[k] for k in keys)
+                and list(gs.tier_rounds) == cm["state_tier_rounds"]
+                and gs.rescans == cm["rescans"] and gm["soln_found"])
+        name, mode = key.split("_")
+        log(f"[14 candidates] (b) {n}x{n} {name} mode={mode!r}: CUDA "
+            f"{g_s:.3f} s, CPU {cm['seconds']:.3f} s (a child); its "
+            f"{gm['its']}, phases {gm['phases']}, rescans {gs.rescans}, "
+            f"tier_rounds {gs.tier_rounds}; CUDA == CPU (sol, prices bits, "
+            f"{', '.join(keys)}, rescans): {same}")
+        if not same:
+            raise AssertionError(f"candidates {name} {mode}: CUDA != CPU")
+        out[key] = dict(cuda_s=g_s, cpu_s=cm["seconds"], its=gm["its"],
+                        rescans=gs.rescans, tier_rounds=gs.tier_rounds,
+                        launches=launches)
     return out
 
 
@@ -4197,11 +4250,13 @@ def phase_candidates(head, head5):
     additions of K1 and K2."""
     t0 = time.perf_counter()
     out = {}
-    out["headline"], joint = _cand_headline(head, head5)
-    out["joint"] = _cand_joint(joint)
-    del joint
-    out["profile"] = _cand_profile(head)
-    out["parity"] = _cand_parity()
+    with cpu_child("--candidates-cpu") as (child, path):
+        out["headline"], joint = _cand_headline(head, head5)
+        out["joint"] = _cand_joint(joint)
+        del joint
+        out["profile"] = _cand_profile(head)
+        out["parity"] = _cand_parity(_child_result(child, path,
+                                                   "--candidates-cpu"))
     out["calibrate"] = _cand_calibrate()
     out["trace"] = _cand_trace()
     out["seconds"] = time.perf_counter() - t0
@@ -4216,6 +4271,306 @@ def phase_candidates(head, head5):
             **{f"candidates_joint_{k}": v for k, v in out["joint"].items()}),
     }
     return out, extra
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the tracking workload (chained warm re-solves) and the examples
+# ---------------------------------------------------------------------------
+
+TRACK_FRAMES = 2              # phase 15(a): frames per family at 1M (C: 4)
+TRACK_PARITY_N = 20_000       # phase 15(b): CUDA == CPU chains at this n
+EX_TRACK_N = 2000             # phase 15(c): the tracking example's n
+
+
+def _same_np_bits(a, b) -> bool:
+    return _same_bits(torch.from_numpy(np.asarray(a)),
+                      torch.from_numpy(np.asarray(b)))
+
+
+def _track_zero() -> None:
+    ladder_phase.launches = 0
+    _zero_counts()
+
+
+def _track_counts() -> dict:
+    return dict(ladder=ladder_phase.launches, **_counts())
+
+
+def _frame_kind(name: str) -> tuple:
+    """("A", "cold") for "A0_cold_construct+hk+solve" and "A1_cold",
+    ("B", "presolve") for family B's pre-solve."""
+    return name[0], name.split("_")[1]
+
+
+def _track_recorder(details: list, dev: bool = True):
+    """run_families' on_frame hook: synchronises, reads the frame's
+    launches (and, on the card, its peak and resident device memory),
+    zeroes them for the next frame and keeps the detail."""
+    def on_frame(d):
+        if dev:
+            torch.cuda.synchronize()
+            d = dict(d, peak_bytes=torch.cuda.max_memory_allocated(),
+                     resident_bytes=torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        d = dict(d, launches=_track_counts())
+        _track_zero()
+        details.append(d)
+    return on_frame
+
+
+def _check_frame_launches(d) -> None:
+    """One ladder launch per phase of every solve in the frame, no
+    standalone K1/K2 launch."""
+    want = sum(m["phases"] for m in d["metas"])
+    got = d["launches"]
+    if got["ladder"] != want or any(got[k] for k in (
+            "bid_topk", "commit", "resolve", "commit_keys")):
+        raise AssertionError(f"[15 tracking] {d['frame']}: launches {got}, "
+                             f"want {want} ladder launches and no other")
+
+
+def _track_headline(n=N_HEAD):
+    """(a): families A, B, C at 1M on the card; every frame soln_found,
+    each warm frame's objective within n * eps_min of the same frame's
+    cold objective, launches per frame.  Returns the summary."""
+    details = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _track_zero()
+    t0 = time.perf_counter()
+    _, summary = TR.run_families(
+        n=n, frames=TRACK_FRAMES, mode="hybrid", device=DEVICE, warm="fr",
+        gs_engine="forward", on_frame=_track_recorder(details))
+    seconds = time.perf_counter() - t0
+    cold_obj = {}
+    launches = {}
+    for d in details:
+        m = d["metas"][-1]
+        rec = d["record"] or {}
+        log(f"[15 tracking] {d['frame']}: {rec.get('s')} s, obj "
+            f"{m['obj']!r}, soln_found {m['soln_found']}; device "
+            f"{m['device_time']:.4f} s, readback {m['readback_time']:.4f} s,"
+            f" host GS {m['host_gs_time']:.4f} s, host bids "
+            f"{m['host_bids']}; phases {m['phases']}, its {m['its']}, "
+            f"tier_rounds {m['tier_rounds']}; hk_s {d['hk_s']}, churn_s "
+            f"{d['churn_s']}, fell_back {d['fell_back']}; launches "
+            f"{d['launches']}; peak "
+            f"{d['peak_bytes'] / 2**30:.3f} GiB, resident after "
+            f"{d['resident_bytes'] / 2**30:.3f} GiB")
+        if not (m["soln_found"] and rec.get("found", True)
+                and rec.get("feasible", True)):
+            raise AssertionError(f"[15 tracking] {d['frame']}: no solution")
+        _check_frame_launches(d)
+        fam, kind = _frame_kind(d["frame"])
+        key = launches.setdefault(fam, {})
+        key[kind] = key.get(kind, 0) + d["launches"]["ladder"]
+        frame_no = d["frame"].split("_")[0]
+        if kind == "cold":
+            cold_obj[frame_no] = m["obj"]
+        elif kind == "warm":
+            gap = abs(m["obj"] - cold_obj[frame_no])
+            bound = n * m["final_eps"]
+            log(f"[15 tracking] {frame_no}: |obj_warm - obj_cold| = {gap!r}"
+                f" <= n * eps_min = {bound!r}: {gap <= bound}")
+            if gap > bound:
+                raise AssertionError(f"[15 tracking] {frame_no}: warm "
+                                     "objective off the cold one")
+    by_family = {}
+    for fam, word in (("A", "value_drift"), ("B", "pattern_drift"),
+                      ("C", "persistent")):
+        cold = summary[f"fps_{word}_cold"]
+        warm = summary[f"fps_{word}_warm"]
+        frames = [d for d in details if d["frame"][0] == fam]
+        by_family[fam] = dict(
+            fps_cold=cold, fps_warm=warm, warm_over_cold=warm / cold,
+            peak_gib=max(d["peak_bytes"] for d in frames) / 2**30,
+            warm_s=[d["record"]["s"] for d in frames
+                    if d["record"] and d["frame"].endswith("_warm")],
+            cold_s=[d["record"]["s"] for d in frames
+                    if d["record"] and "_cold" in d["frame"]],
+            warm_split={k: sum(d["metas"][-1][k] for d in frames
+                               if d["frame"].endswith("_warm"))
+                        for k in ("device_time", "readback_time",
+                                  "host_gs_time")},
+            hk_s=[d["hk_s"] for d in frames if d["hk_s"] is not None],
+            churn_s=[d["churn_s"] for d in frames
+                     if d["churn_s"] is not None],
+            fell_back=sum(d["fell_back"] for d in frames))
+        log(f"[15 tracking] family {fam}: frames/s cold {cold} warm {warm} "
+            f"(warm / cold {warm / cold:.3f}); peak device memory "
+            f"{by_family[fam]['peak_gib']:.3f} GiB; warm frames' device / "
+            f"readback / host GS s {by_family[fam]['warm_split']}")
+    log(f"[15 tracking] (a) summary {json.dumps(summary)}; {seconds:.1f} s")
+    return dict(summary=summary, families=by_family, launches=launches,
+                seconds=seconds)
+
+
+def _track_parity(n=TRACK_PARITY_N):
+    """(b): the same chains at n on the card and with device='cpu': every
+    frame's record (but timers), sol, prices bits, its, phases, host bids,
+    soln_found and fell_back equal."""
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        details = []
+        _track_zero()
+        t0 = time.perf_counter()
+        TR.run_families(n=n, frames=TRACK_FRAMES, mode="hybrid",
+                        device=device, warm="fr", gs_engine="forward",
+                        on_frame=_track_recorder(details,
+                                                 dev=device != "cpu"))
+        runs[device] = (details, time.perf_counter() - t0)
+    (dc, sc), (dp, sp) = runs[DEVICE], runs["cpu"]
+    keys = ("its", "phases", "host_bids", "soln_found", "obj")
+    same = len(dc) == len(dp) and all(
+        a["frame"] == b["frame"] and a["fell_back"] == b["fell_back"]
+        and np.array_equal(a["sol"], b["sol"])
+        and _same_np_bits(a["prices"], b["prices"])
+        and [[m[k] for k in keys] for m in a["metas"]]
+        == [[m[k] for k in keys] for m in b["metas"]]
+        and ({k: v for k, v in (a["record"] or {}).items()
+              if k not in ("s", "hk_s")}
+             == {k: v for k, v in (b["record"] or {}).items()
+                 if k not in ("s", "hk_s")})
+        for a, b in zip(dc, dp))
+    for d in dc:
+        _check_frame_launches(d)
+    log(f"[15 tracking] (b) {n}x{n}, {len(dc)} frames (A, C, B): CUDA "
+        f"{sc:.1f} s == CPU {sp:.1f} s (records, sol, prices bits, its, "
+        f"phases, host bids, soln_found, fell_back): {same}")
+    if not same:
+        raise AssertionError("[15 tracking] CUDA chains != CPU chains")
+    return dict(n=n, frames=len(dc), cuda_s=sc, cpu_s=sp,
+                launches=sum(d["launches"]["ladder"] for d in dc))
+
+
+def tracking_cpu(path: str) -> None:
+    """--tracking-cpu PATH: the tracking example with device='cpu' at
+    EX_TRACK_N (phase 15(c)'s reference), saved to PATH (npz)."""
+    out = EXT.main(n=EX_TRACK_N, device="cpu")
+    np.savez(path, cold_its_frame1=out["cold_its_frame1"],
+             warm_hk_size=out["warm_hk_size"],
+             **{f"{k}_{i}": np.asarray(f[k]) for i, f in
+                enumerate(out["frames"]) for k in
+                ("obj", "its", "phases", "sol", "prices")})
+
+
+def _ex_basic():
+    card = EXB.main(device=DEVICE)
+    cpu = EXB.main(device="cpu")
+    same = all(
+        np.array_equal(card[k][2], cpu[k][2]) and card[k][:2] == cpu[k][:2]
+        if k == "sparse_hybrid" else card[k] == cpu[k] for k in cpu)
+    log(f"[15 tracking] (c) basic example on the card == device='cpu' "
+        f"(objectives, hybrid rounds and sol, matching, infeasible): {same}")
+    if not same:
+        raise AssertionError("[15 tracking] basic example differs")
+
+
+def _ex_tracking(child, path):
+    _track_zero()
+    t0 = time.perf_counter()
+    card = EXT.main(n=EX_TRACK_N, device=DEVICE)
+    secs = time.perf_counter() - t0
+    launches = _track_counts()
+    cpu = _child_result(child, path, "--tracking-cpu")
+    same = all(
+        np.array_equal(f["sol"], cpu[f"sol_{i}"])
+        and _same_np_bits(f["prices"], cpu[f"prices_{i}"])
+        and [f["obj"], f["its"], f["phases"]]
+        == [float(cpu[f"obj_{i}"]), int(cpu[f"its_{i}"]),
+            int(cpu[f"phases_{i}"])]
+        for i, f in enumerate(card["frames"]))
+    same = same and card["cold_its_frame1"] == int(cpu["cold_its_frame1"])
+    fewer = card["frames"][1]["its"] < card["cold_its_frame1"]
+    log(f"[15 tracking] (c) tracking example, mode='device', n = "
+        f"{EX_TRACK_N}, 5 frames on the card: {secs:.2f} s, rounds "
+        f"{[f['its'] for f in card['frames']]}, frame 1 cold "
+        f"{card['cold_its_frame1']} (warm fewer: {fewer}); == device='cpu' "
+        f"(sol, prices bits, obj, its, phases): {same}; checkpoint "
+        f"{card['checkpoint_ok']}, warm HK {card['warm_hk_size']}; launches "
+        f"{launches}")
+    if not (same and fewer and card["checkpoint_ok"]
+            and card["warm_hk_size"] == EX_TRACK_N):
+        raise AssertionError("[15 tracking] tracking example failed")
+    # one ladder launch per phase of the five frames and frame 1's cold
+    # solve, no standalone K1/K2 launch
+    want = sum(f["phases"] for f in card["frames"]) + \
+        card["cold_phases_frame1"]
+    if launches["ladder"] != want or any(launches[k] for k in (
+            "bid_topk", "commit", "resolve", "commit_keys")):
+        raise AssertionError(f"[15 tracking] tracking example launches "
+                             f"{launches}, want {want} ladder launches")
+    return dict(seconds=secs, launches=launches,
+                rounds=[f["its"] for f in card["frames"]],
+                cold_its_frame1=card["cold_its_frame1"])
+
+
+def _ex_distributed():
+    """The distributed example on make_mesh() (every local card) and on
+    four shards of the one card, each with its asserts (sharded == single,
+    overlap and ladder_balance give the hybrid's objective)."""
+    out = {}
+    for label, devices in (("mesh", None),
+                           ("four_shards", [torch.device(DEVICE)] * 4)):
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = EXD.main(devices=devices)
+        secs = time.perf_counter() - t0
+        out[label] = dict(seconds=secs, launches=_counts(),
+                          shards=res["shards"],
+                          rounds=dict(single=res["single"][1],
+                                      sharded=res["sharded"][1],
+                                      hybrid=res["hybrid"][1],
+                                      overlap=res["overlap"][1]))
+        log(f"[15 tracking] (c) distributed example on {res['shards']} "
+            f"shard(s): {secs:.1f} s, asserts passed; rounds "
+            f"{out[label]['rounds']}; launches {out[label]['launches']}")
+        if not all(out[label]["launches"][k] for k in (
+                "bid_topk", "commit", "resolve", "commit_keys")):
+            raise AssertionError("[15 tracking] distributed example made "
+                                 "no launch of a kernel of its path")
+    return out
+
+
+def phase_tracking():
+    """Phase 15: (a)-(c); returns its summary and the kernels-line
+    additions of the ladder, K1, K2 and the fused commit."""
+    t0 = time.perf_counter()
+    out = {}
+    with cpu_child("--tracking-cpu") as (child, path):
+        out["headline"] = _track_headline()
+        out["parity"] = _track_parity()
+        _ex_basic()
+        out["tracking_example"] = _ex_tracking(child, path)
+    out["distributed"] = _ex_distributed()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[15 tracking] phase 15: {out['seconds']:.1f} s")
+    dist = {k: v["launches"] for k, v in out["distributed"].items()}
+    extra = {
+        "ladder": dict(tracking_launches=out["headline"]["launches"],
+                       tracking_parity_launches=out["parity"]["launches"],
+                       tracking_example_launches=out["tracking_example"][
+                           "launches"]["ladder"]),
+        "bid_topk": dict(distributed_example_launches={
+            k: v["bid_topk"] for k, v in dist.items()}),
+        "commit": dict(distributed_example_launches={
+            k: {"commit": v["commit"], "resolve": v["resolve"]}
+            for k, v in dist.items()}),
+        "commit_keys": dict(distributed_example_launches={
+            k: v["commit_keys"] for k, v in dist.items()}),
+    }
+    return out, extra
+
+
+def tracking_timing(label: str) -> None:
+    """--tracking LABEL: phase 15 alone, printed as one line "TRACKING
+    LABEL {...}" (numbers unrounded)."""
+    phase_device()
+    phase_build()
+    out, _ = phase_tracking()
+    print("TRACKING", label, json.dumps(
+        {"tree": os.path.dirname(os.path.abspath(__file__)), **out}),
+        flush=True)
 
 
 def main() -> None:
@@ -4240,6 +4595,7 @@ def main() -> None:
     hy_runs, gathered, hy_summary = phase_sharded_hybrid(head, head5)
     cand, cand_extra = phase_candidates(head, head5)
     del head
+    track, track_extra = phase_tracking()
     # the batched paths of K1 (mode='device') and K2 (both batched modes),
     # and each one's device time in one mode='device' call (profiler)
     # and the sharded and overlapped paths' launches (phases 11 and 12: K1,
@@ -4281,7 +4637,7 @@ def main() -> None:
             ms_device=times[name + "_device"],
             plain_ms=times[name + "_plain"], **times["bounds"][name],
             library_ms=times["library"][name], **times["limiters"][name],
-            **batched[name], **cand_extra[name]))
+            **batched[name], **cand_extra[name], **track_extra[name]))
     name = "gs_auction_device"
     kernels.append(dict(
         name=name, **KERNELS[name], launches=k3["launches"],
@@ -4291,7 +4647,8 @@ def main() -> None:
             "ms_noprefetch", "tail_us_per_bid", "whole_tail_us_per_bid",
             "bid_warps", "counters")}))
     kernels.append(dict(name="ladder", **KERNELS["ladder"],
-                        launches=launches["ladder"], **ladder))
+                        launches=launches["ladder"], **ladder,
+                        **track_extra["ladder"]))
     # DK at C = all rows of a chunk (the first round), and at C = 256
     big, small = dk[CHUNK3 * N3], dk[min(dk)]
     kernels.append(dict(name="dense_bid", **KERNELS["dense_bid"],
@@ -4315,9 +4672,10 @@ def main() -> None:
         overlapped_round_ms={s: ov[f"round_ms_{s}"] for s in (1, 4)},
         sharded_hybrid_launches={k: hy_runs[k]["commit_keys"] for k in
                                  ("headline_1", "headline_4")},
-        sharded_hybrid=hy_summary))
+        sharded_hybrid=hy_summary, **track_extra["commit_keys"]))
     log(f"[chip_smoke] whole run {time.perf_counter() - t_start:.1f} s "
-        f"(phase 14: {cand['seconds']:.1f} s) of the 1200 s limit")
+        f"(phase 14: {cand['seconds']:.1f} s, phase 15: "
+        f"{track['seconds']:.1f} s) of the 1200 s limit")
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4466,6 +4824,12 @@ if __name__ == "__main__":
         sharded_hybrid_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 1 and sys.argv[1] == "--candidates":
         candidates_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--tracking":
+        tracking_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
+    elif len(sys.argv) > 2 and sys.argv[1] == "--tracking-cpu":
+        tracking_cpu(sys.argv[2])
+    elif len(sys.argv) > 2 and sys.argv[1] == "--candidates-cpu":
+        candidates_cpu(sys.argv[2])
     elif len(sys.argv) > 1 and sys.argv[1] == "--commit-keys":
         commit_keys_timing(sys.argv[2] if len(sys.argv) > 2 else "tree")
     elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-cpu":

@@ -1404,3 +1404,47 @@ def test_candidates_on_one_card_matches_cpu(dev, integer):
             assert card["meta"]["soln_found"]
     finally:
         PCD.solve_candidates = real
+
+
+@pytest.mark.parametrize("warm", ["fr", "relax"])
+def test_tracking_chain_on_one_card_matches_cpu(dev, warm):
+    """The tracking harness's chains (families A, C and B: chained warm
+    prices, FR tightening, drift-matched eps_start, warm Hopcroft-Karp)
+    on the card against the same chains with device='cpu', n = 5000, under
+    the FR tightening and the 0.9 rollback: every
+    frame's record (but its timers), sol, prices bits, rounds, phases and
+    fell_back equal; on the hybrid path one ladder launch per phase and
+    no standalone K1/K2 launch."""
+    from sslap_tpu_torch.benchmarks import tracking as T
+    runs = {}
+    for device in ("cuda", "cpu"):
+        details = []
+        launches = []
+
+        def on_frame(d):
+            launches.append((ladder_phase.launches, bid_topk.launches,
+                             commit.launches))
+            ladder_phase.launches = bid_topk.launches = commit.launches = 0
+            details.append(d)
+
+        ladder_phase.launches = bid_topk.launches = commit.launches = 0
+        records, _ = T.run_families(n=5000, frames=1, mode="hybrid",
+                                    device=device, warm=warm,
+                                    on_frame=on_frame)
+        runs[device] = (records, details, launches)
+    (rc, dc, lc), (rp, dp, _) = runs["cuda"], runs["cpu"]
+    assert len(rc) == len(rp) == 14
+    for a, b in zip(rc, rp):
+        assert {k: v for k, v in a.items() if k not in ("s", "hk_s")} == \
+            {k: v for k, v in b.items() if k not in ("s", "hk_s")}
+    for a, b, (ladder, k1, k2) in zip(dc, dp, lc):
+        np.testing.assert_array_equal(a["sol"], b["sol"])
+        np.testing.assert_array_equal(a["prices"].view(np.int32),
+                                      b["prices"].view(np.int32))
+        for key in ("its", "phases", "soln_found"):
+            assert [m[key] for m in a["metas"]] == \
+                [m[key] for m in b["metas"]], key
+        assert a["fell_back"] == b["fell_back"]
+        assert a["metas"][-1]["soln_found"]
+        assert ladder == sum(m["phases"] for m in a["metas"])
+        assert (k1, k2) == (0, 0)

@@ -1,9 +1,10 @@
 """The port stands alone: importing ``sslap_tpu_torch`` (the batched,
-feasibility-seed, parallel, candidate, calibrate and utils modules
-included) and everything ``chip_smoke.py`` imports, then solving a small
-instance, a small batch, a sharded instance (plain and sharded hybrid)
-and one with engine='candidates' on the CPU through the native host
-runtime, with
+feasibility-seed, parallel, candidate, calibrate and utils modules, the
+tracking harness and the examples included) and everything
+``chip_smoke.py`` imports, then solving a small instance, a small batch,
+a sharded instance (plain and sharded hybrid), one with
+engine='candidates' and two tracking families on the CPU through the
+native host runtime, with
 the device seed of the Hopcroft-Karp check (the overlapped, scaling and
 multi-process modules imported too), loads no jax and no file of the JAX
 package (``sslap_tpu/``), and the port's native library is its own build
@@ -30,6 +31,8 @@ import torch
 from sslap_tpu_torch import _native, feasibility, parallel
 from sslap_tpu_torch import calibrate, candidate, utils
 from sslap_tpu_torch.utils import checkpoint, liveness, profiling
+from sslap_tpu_torch.benchmarks import tracking as harness
+from sslap_tpu_torch.examples import basic, distributed, tracking
 rng = np.random.default_rng(0)
 n, k = 300, 6
 rr = np.concatenate([np.repeat(np.arange(n), k), np.arange(n)])
@@ -49,6 +52,8 @@ hybrid = parallel.auction_solve_sharded_hybrid(
     mesh=parallel.make_mesh([torch.device("cpu")] * 2))
 cand = P.AuctionSolver(loc=loc, val=val, shape=(n, n), mode="device",
                        engine="candidates", device="cpu").solve()
+records, _ = harness.run_families(n=300, frames=1, families="AB",
+                                  device="cpu")
 seeded = feasibility.is_feasible(P.from_coo(loc, val, shape=(n, n)),
                                  device_seed=True, device="cpu")
 print(json.dumps({
@@ -60,7 +65,8 @@ print(json.dumps({
     "soln_found": res["meta"]["soln_found"]
     and all(mt["soln_found"] for mt in metas) and seeded
     and sharded["meta"]["n_shards"] == 2 and hybrid["meta"]["soln_found"]
-    and cand["meta"]["soln_found"] and calibrate.crossover() == 500_000,
+    and cand["meta"]["soln_found"] and calibrate.crossover() == 500_000
+    and all(r.get("found", True) for r in records),
 }))
 """
 
@@ -91,7 +97,9 @@ def test_port_loads_nothing_of_the_jax_package():
     assert "sslap_tpu_torch.parallel.multiproc" in names
     assert "sslap_tpu_torch.parallel.sharded_compact" in names
     for mod in ("candidate", "calibrate", "utils", "utils.checkpoint",
-                "utils.liveness", "utils.profiling"):
+                "utils.liveness", "utils.profiling", "benchmarks.tracking",
+                "examples.basic", "examples.tracking",
+                "examples.distributed"):
         assert f"sslap_tpu_torch.{mod}" in names
     if got["native"]:
         lib = Path(got["native_lib"]).resolve()
