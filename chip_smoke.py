@@ -8,6 +8,8 @@
     python3 chip_smoke.py --sharded-hybrid LABEL  # phase 13 alone
     python3 chip_smoke.py --candidates LABEL  # phase 14 alone
     python3 chip_smoke.py --tracking LABEL    # phase 15 alone
+    python3 chip_smoke.py --fuzz LABEL [--iters N] [--seed S] [--family F]
+                                              # phase 16 over that range
 
 Run from the repository root on a machine with a CUDA device.  Phases, each
 of which raises on failure (so the exit code is non-zero):
@@ -282,6 +284,23 @@ of which raises on failure (so the exit code is non-zero):
                  launch per phase; distributed on make_mesh() and on
                  [cuda] * 4 with its asserts (sharded == single, overlap
                  and ladder_balance give the hybrid's objective)
+ 16. fuzz     -- the differential fuzz (sslap_tpu_torch.benchmarks.fuzz):
+                 FUZZ_CASES cases from seed FUZZ_SEED, the five families in
+                 turn (auction, hk, batch, adapter, sharded_flags; 12 a
+                 family), through the public calls on the card, each
+                 checked against scipy (integers exact, floats within
+                 (m + 1) * final_eps + 1e-3), then held call by call to the
+                 same plan with device="cpu" on a CPU mesh as wide as the
+                 card's (children, --fuzz-cpu, started at the phase's start,
+                 one a core): sol, prices bits and every meta key but the
+                 timers, instance by instance for the batches, the same
+                 exception type where one raises; the launch counts, set to
+                 0 before the card half and read after it: K1 (single and
+                 batched entry), K2 (commit and resolve launch), the ladder,
+                 DK and the fused commit must each launch; prints cases by
+                 family and by mode, failures, launches per counter and per
+                 kernel, the ladder's grid and one-block tail rounds and
+                 the seconds
 
 The line before the last is {"kernels": [...]}: per kernel, the launches
 counted on its path (the ladder: the cold headline solve; K1, K2: the
@@ -336,10 +355,18 @@ entries, bids, ms, ms_device, plain_ms, bound, library_ms).  Phase 15
 adds tracking_launches to the ladder's entry ((a): per family and frame
 kind), with tracking_parity_launches ((b)'s card run) and
 tracking_example_launches, and distributed_example_launches to K1's, K2's
-(commit and resolve) and the fused commit's (per mesh of (c)).  The
-profiler windows count device-side events only (a CPU op's device time
+(commit and resolve) and the fused commit's (per mesh of (c)).  Phase 16
+adds fuzz_launches to the entries of K1 (bid_topk and bid_topk_batched),
+K2 (commit and resolve), the ladder, DK and the fused commit: their
+launches in phase 16's card half.  The profiler windows count device-side events only (a CPU op's device time
 repeats its kernels').  The last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
+
+--fuzz LABEL [--iters N] [--seed S] [--family F] runs only phase 16, over
+that range of cases (default: phase 16's), prints its summary as one line
+"FUZZ LABEL {...}" (with the card's name and power limit) and then raises
+on any failure; --fuzz-cpu PATH SEED ITERS FAMILY PART PARTS is its child
+(the CPU twins of the cases i with i % PARTS == PART, pickled to PATH).
 
 --tracking LABEL runs only phase 15 and prints its numbers as one line
 "TRACKING LABEL {...}"; --tracking-cpu PATH is its child (the tracking
@@ -397,6 +424,7 @@ import contextlib
 import inspect
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -416,6 +444,7 @@ from sslap_tpu_torch import hybrid as H
 from sslap_tpu_torch import parallel as PP
 from sslap_tpu_torch.auction import neg_sentinel_np
 from sslap_tpu_torch.batch import auction_solve_batched, stack_problems
+from sslap_tpu_torch.benchmarks import fuzz as FZ
 from sslap_tpu_torch.benchmarks import tracking as TR
 # bench.make_instance's copy (bench.py imports jax); time_headline.py
 # imports it from here
@@ -3082,16 +3111,18 @@ def _batched_mesh(dev):
 
 
 @contextlib.contextmanager
-def cpu_child(flag: str):
+def cpu_child(flag: str, *args):
     """The CPU meshes of phase 11 (``--sharded-cpu``) or 12
-    (``--overlapped-cpu``) in a child process on one torch thread (its
-    shard threads take turns), beside the card's solves; yields (process,
-    output path) and kills it if it still runs at exit."""
+    (``--overlapped-cpu``), or another phase's CPU half, in a child process
+    (``flag PATH *args``) on one torch thread (its shard threads take
+    turns), beside the card's solves; yields (process, output path) and
+    kills it if it still runs at exit."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "cpu_mesh.npz")
         child = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), flag, path],
+            [sys.executable, os.path.abspath(__file__), flag, path,
+             *map(str, args)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=dict(os.environ, OMP_NUM_THREADS="1"))
         try:
@@ -3102,13 +3133,17 @@ def cpu_child(flag: str):
                 child.wait()
 
 
-def _child_result(child, path, flag):
-    """Wait for a CPU-mesh child; returns its npz, loaded."""
-    out, _ = child.communicate(timeout=900)
+def _child_result(child, path, flag, timeout=900):
+    """Wait for a CPU-mesh child; returns its npz, loaded (a pickle for
+    --fuzz-cpu)."""
+    out, _ = child.communicate(timeout=timeout)
     for line in out.splitlines():
         log(line)
     if child.returncode != 0:
         raise RuntimeError(f"{flag} failed ({child.returncode})")
+    if flag == "--fuzz-cpu":
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
     with np.load(path) as z:
         return dict(z)
 
@@ -4573,6 +4608,103 @@ def tracking_timing(label: str) -> None:
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the differential fuzz on the card, held to its CPU twin
+# ---------------------------------------------------------------------------
+
+FUZZ_SEED = 0                 # phase 16: the first seed of its cases
+FUZZ_CASES = 60               # ... and their number (12 a family, in turn)
+FUZZ_CHILD_SECONDS = 3000     # a CPU-twin child's time limit
+
+
+def _fuzz_parts() -> int:
+    """The CPU twins run in this many child processes, each on one core;
+    two cores stay with the card half."""
+    return max(1, min(6, (os.cpu_count() or 4) - 2))
+
+
+def fuzz_cpu(path: str, seed, iters, family, part, parts) -> None:
+    """--fuzz-cpu PATH SEED ITERS FAMILY PART PARTS (phase 16's child): the
+    CPU twins (device='cpu') of the cases i of FZ.case_list(SEED, ITERS,
+    FAMILY) with i % PARTS == PART, pickled to PATH as {i: outcomes}."""
+    cases = FZ.case_list(int(seed), int(iters), family)
+    part, parts = int(part), int(parts)
+    out = {i: FZ.run_plan(FZ.PLANS[f](s), FZ.Backend("cpu"))
+           for i, (f, s) in enumerate(cases) if i % parts == part}
+    with open(path, "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def phase_fuzz(seed=FUZZ_SEED, iters=FUZZ_CASES, family="all",
+               label=None) -> dict:
+    """Phase 16: the differential fuzz (sslap_tpu_torch.benchmarks.fuzz)
+    over FZ.case_list(seed, iters, family) on the card, each case checked
+    against scipy, then held call by call, bit for bit, to its CPU twin,
+    which child processes (--fuzz-cpu) compute beside the card half.
+    Returns the sweep's summary (cases by family and by mode, failures,
+    launches per counter and per kernel, the ladder's grid and tail rounds)
+    with its seconds; raises on any failure and when a kernel the families
+    reach never launched.  With a label (--fuzz), the summary is printed
+    first as one line "FUZZ LABEL {...}"."""
+    t0 = time.perf_counter()
+    parts = _fuzz_parts()
+    twins = {}
+    with contextlib.ExitStack() as stack:
+        kids = [stack.enter_context(cpu_child(
+            "--fuzz-cpu", seed, iters, family, k, parts))
+            for k in range(parts)]
+
+        def cpu_outcomes(i, fam, s):
+            k = i % parts
+            if k not in twins:
+                twins[k] = _child_result(*kids[k], "--fuzz-cpu",
+                                         timeout=FUZZ_CHILD_SECONDS)
+            return twins[k][i]
+
+        out = FZ.sweep(FZ.case_list(seed, iters, family), "cuda",
+                       cpu_outcomes=cpu_outcomes,
+                       progress_every=max(10, iters // 10),
+                       log=lambda *a: log("[16 fuzz]", *a))
+    out.update(seconds=time.perf_counter() - t0, cpu_children=parts,
+               seed=seed, family=family)
+    ln = out["launches"]
+    log(f"[16 fuzz] {out['cases']} cases (seeds {seed}..{seed + iters - 1},"
+        f" family {family}): {len(out['failures'])} failures, "
+        f"{out['seconds']:.1f} s, {parts} CPU-twin children")
+    log(f"[16 fuzz] by family {out['by_family']}")
+    log(f"[16 fuzz] by mode {out['by_mode']}")
+    log(f"[16 fuzz] launches {ln['counters']}, by kernel {ln['kernels']}")
+    log(f"[16 fuzz] ladder rounds: grid {ln['ladder_stats']['grid_rounds']},"
+        f" one-block tail {ln['ladder_stats']['tail_rounds']}")
+    if label is not None:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        print("FUZZ", label, json.dumps({"card": smi.stdout.strip(), **out}),
+              flush=True)
+    if out["failures"] or out["unreached"]:
+        raise AssertionError(
+            f"phase 16: {len(out['failures'])} failures, kernels never "
+            f"launched: {out['unreached']}")
+    return out
+
+
+def fuzz_sweep(argv) -> None:
+    """--fuzz LABEL [--iters N] [--seed S] [--family F]: phase 16 over
+    that seed range alone, printed as one line "FUZZ LABEL {...}" (the
+    card's name and power limit, the summary; numbers unrounded)."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --fuzz")
+    ap.add_argument("label")
+    ap.add_argument("--iters", type=int, default=FUZZ_CASES)
+    ap.add_argument("--seed", type=int, default=FUZZ_SEED)
+    ap.add_argument("--family", choices=[*FZ.PLANS, "all"], default="all")
+    args = ap.parse_args(argv)
+    phase_device()
+    phase_build()
+    phase_fuzz(args.seed, args.iters, args.family, label=args.label)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_device()
@@ -4596,6 +4728,12 @@ def main() -> None:
     cand, cand_extra = phase_candidates(head, head5)
     del head
     track, track_extra = phase_tracking()
+    fuzz = phase_fuzz()
+    # the fuzz's launches per kernel, under each kernel's entry
+    fz = {name: dict(fuzz_launches=fuzz["launches"]["kernels"][k])
+          for name, k in (("bid_topk", "K1"), ("commit", "K2"),
+                          ("ladder", "ladder"), ("dense_bid", "DK"),
+                          ("commit_keys", "commit_keys"))}
     # the batched paths of K1 (mode='device') and K2 (both batched modes),
     # and each one's device time in one mode='device' call (profiler)
     # and the sharded and overlapped paths' launches (phases 11 and 12: K1,
@@ -4637,7 +4775,8 @@ def main() -> None:
             ms_device=times[name + "_device"],
             plain_ms=times[name + "_plain"], **times["bounds"][name],
             library_ms=times["library"][name], **times["limiters"][name],
-            **batched[name], **cand_extra[name], **track_extra[name]))
+            **batched[name], **cand_extra[name], **track_extra[name],
+            **fz[name]))
     name = "gs_auction_device"
     kernels.append(dict(
         name=name, **KERNELS[name], launches=k3["launches"],
@@ -4648,14 +4787,15 @@ def main() -> None:
             "bid_warps", "counters")}))
     kernels.append(dict(name="ladder", **KERNELS["ladder"],
                         launches=launches["ladder"], **ladder,
-                        **track_extra["ladder"]))
+                        **track_extra["ladder"], **fz["ladder"]))
     # DK at C = all rows of a chunk (the first round), and at C = 256
     big, small = dk[CHUNK3 * N3], dk[min(dk)]
     kernels.append(dict(name="dense_bid", **KERNELS["dense_bid"],
                         launches=hy_launches["dense_bid"], **big,
                         library_ms=None,
                         **{f"{k}_c256": small[k] for k in
-                           ("max_abs_err", "ms", "plain_ms", "bound_ms")}))
+                           ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+                        **fz["dense_bid"]))
     # the fused key commit: launches on phase 12's overlapped headline
     # runs (its main path), those of phase 11's sharded runs beside
     kc = ov["commit_keys"]
@@ -4672,10 +4812,12 @@ def main() -> None:
         overlapped_round_ms={s: ov[f"round_ms_{s}"] for s in (1, 4)},
         sharded_hybrid_launches={k: hy_runs[k]["commit_keys"] for k in
                                  ("headline_1", "headline_4")},
-        sharded_hybrid=hy_summary, **track_extra["commit_keys"]))
+        sharded_hybrid=hy_summary, **track_extra["commit_keys"],
+        **fz["commit_keys"]))
     log(f"[chip_smoke] whole run {time.perf_counter() - t_start:.1f} s "
         f"(phase 14: {cand['seconds']:.1f} s, phase 15: "
-        f"{track['seconds']:.1f} s) of the 1200 s limit")
+        f"{track['seconds']:.1f} s, phase 16: {fuzz['seconds']:.1f} s) of "
+        f"the 1200 s limit")
     print(json.dumps({"kernels": kernels + probes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4838,5 +4980,9 @@ if __name__ == "__main__":
         sharded_cpu(sys.argv[2], "overlapped")
     elif len(sys.argv) > 2 and sys.argv[1] == "--sharded-hybrid-cpu":
         sharded_cpu(sys.argv[2], "sharded_hybrid")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--fuzz":
+        fuzz_sweep(sys.argv[2:])
+    elif len(sys.argv) > 7 and sys.argv[1] == "--fuzz-cpu":
+        fuzz_cpu(*sys.argv[2:8])
     else:
         main()

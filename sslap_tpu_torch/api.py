@@ -370,7 +370,8 @@ class AuctionSolver:
         # the solve's count leaves out rows with no entries: they are
         # unassignable, so they are folded back in here
         unassigned = res.unassigned + int((prob.nvalid == 0).sum())
-        soln_found = unassigned == 0
+        soln_found = unassigned == 0 and _auction.eps_reached(
+            res.final_eps, e_min, vals.dtype)
         self.prices = res.prices.cpu().numpy()
         self.meta = {
             "obj": _objective_host(prob, sol) if soln_found else None,

@@ -162,6 +162,14 @@ def default_max_iter(n: int) -> int:
     return min(50 * n + 2000, 10_000_000)
 
 
+def eps_reached(final_eps, e_min, dtype) -> bool:
+    """Whether an eps-scaled solve ran its schedule down to eps_min, which
+    eps_min-CS (and so soln_found) needs: a round cap can stop it between
+    phases with every row assigned.  Compared in the solver dtype, as
+    e_min is a host float64."""
+    return bool(final_eps <= np.asarray(e_min, dtype))
+
+
 def _integer_pow(x, y: int):
     """x**y by square-and-multiply in x's dtype: the multiply order of
     XLA's integer_pow, which the reference's ``theta_tail ** tail_phases``

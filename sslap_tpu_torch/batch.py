@@ -326,12 +326,14 @@ def auction_solve_batched(
     metas = []
     for b in range(B):
         unassigned = int(left[b]) + int((nvalid[b] == 0).sum())
+        found = unassigned == 0 and _auction.eps_reached(
+            final_eps[b], e_min, vals.dtype)
         metas.append({
             "obj": (_objective_host(_instance(prob, b), sols[b])
-                    if unassigned == 0 else None),
+                    if found else None),
             "its": int(rounds[b]),
             "phases": int(phases[b]),
-            "soln_found": unassigned == 0,
+            "soln_found": found,
             "final_eps": float(final_eps[b]) / tr.scale,
             "unassigned": unassigned,
             "time": t1 - t0,

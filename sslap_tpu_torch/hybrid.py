@@ -194,9 +194,7 @@ def _finish_square_fast_path(res, tier_rounds, indptr, indices, data,
                             if csc is not None else None))
     t_gs = time.perf_counter() - t_gs0
     unassigned = int(((sigma < 0) & (np.diff(indptr) > 0)).sum())
-    # eps_min-CS only holds if the device pass reached eps_min; compare in
-    # the solver dtype (e_min is a host float64).
-    eps_reached = bool(res.final_eps <= np.asarray(e_min, data.dtype))
+    eps_reached = _auction.eps_reached(res.final_eps, e_min, data.dtype)
     meta = {
         "its": int(res.rounds),
         "host_bids": max(int(bids), 0),

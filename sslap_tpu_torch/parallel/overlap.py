@@ -253,7 +253,8 @@ def auction_solve_overlapped(mat=None, *, loc=None, val=None, shape=None,
     sol = fetch_global(res.sigma)[:n_real]
     t1 = time.perf_counter()
     unassigned = res.unassigned + int((prob.nvalid == 0).sum())
-    soln_found = unassigned == 0
+    soln_found = unassigned == 0 and _auction.eps_reached(
+        res.final_eps, e_min, vals.dtype)
     meta = {
         "obj": _api._objective_host(prob, sol) if soln_found else None,
         "its": res.rounds,

@@ -223,7 +223,8 @@ def auction_solve_sharded(mat=None, *, loc=None, val=None, shape=None,
         sol[row_order[real]] = sol_p[real]
     t1 = time.perf_counter()
     unassigned = res.unassigned + int((prob.nvalid == 0).sum())
-    soln_found = unassigned == 0
+    soln_found = unassigned == 0 and _auction.eps_reached(
+        res.final_eps, e_min, vals.dtype)
     meta = {
         "obj": _api._objective_host(prob, sol) if soln_found else None,
         "its": res.rounds,

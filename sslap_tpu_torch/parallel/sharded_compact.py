@@ -486,7 +486,8 @@ def auction_solve_sharded_hybrid(
     t_gs = time.perf_counter() - t_gs0
 
     unassigned = int(((sigma < 0) & (np.diff(indptr) > 0)).sum())
-    eps_reached = bool(res.final_eps <= e_min_v)
+    eps_reached = _auction.eps_reached(res.final_eps, su.e_min,
+                                       prob.vals.dtype)
     soln_found = unassigned == 0 and bids >= 0 and eps_reached
     meta = {
         "obj": _api._objective_host(prob, sigma) if soln_found else None,

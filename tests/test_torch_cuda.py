@@ -2,9 +2,10 @@
 (K3 also against the native Gauss-Seidel engine, with and without its
 prefetch; the eps-phase ladder through the tiered solve against the same
 solve on the CPU; K1's batched entry and the dense bid kernel DK), the GS
-micro-probe kernels (P1-P17) against their plain versions, and the hybrid
+micro-probe kernels (P1-P17) against their plain versions, the hybrid
 (square and rectangular), device-mode, batched and dense-engine solves on
-CUDA against the same solves on the CPU.
+CUDA against the same solves on the CPU, and the differential fuzz on the
+card against its CPU twin.
 
 Marked ``cuda``; every test skips without a CUDA device.  This file imports
 neither jax nor the JAX package, so it also runs where only torch is
@@ -1448,3 +1449,19 @@ def test_tracking_chain_on_one_card_matches_cpu(dev, warm):
         assert a["metas"][-1]["soln_found"]
         assert ladder == sum(m["phases"] for m in a["metas"])
         assert (k1, k2) == (0, 0)
+
+
+def test_fuzz_families_on_one_card_match_cpu(dev):
+    """The differential fuzz (sslap_tpu_torch.benchmarks.fuzz) with
+    --device cuda: 5 seeds of each family (seeds 115-139 in turn, whose
+    auction cases take the dense engine, the ladder and the sharded
+    rounds) pass the scipy oracles and equal their CPU twins call by call,
+    bit for bit; K1, K2, the ladder, DK and the fused commit each launch."""
+    from sslap_tpu_torch.benchmarks import fuzz as F
+    cases = F.case_list(115, 25, "all")
+    out = F.sweep(cases, "cuda", log=lambda *a: None)
+    assert out["by_family"] == dict.fromkeys(F.PLANS, 5)
+    assert not out["failures"], out["failures"]
+    kernels = out["launches"]["kernels"]
+    assert all(kernels[k] > 0 for k in F.KERNEL_COUNTERS), kernels
+    assert out["unreached"] == []

@@ -1,15 +1,15 @@
 """The port stands alone: importing ``sslap_tpu_torch`` (the batched,
 feasibility-seed, parallel, candidate, calibrate and utils modules, the
-tracking harness and the examples included) and everything
-``chip_smoke.py`` imports, then solving a small instance, a small batch,
-a sharded instance (plain and sharded hybrid), one with
-engine='candidates' and two tracking families on the CPU through the
-native host runtime, with
-the device seed of the Hopcroft-Karp check (the overlapped, scaling and
-multi-process modules imported too), loads no jax and no file of the JAX
-package (``sslap_tpu/``), and the port's native library is its own build
-under ``sslap_tpu_torch/_build/native/``.  Checked in a fresh interpreter
-(this test process has jax loaded by the test harness).
+tracking harness, the differential fuzz and the examples included) and
+everything ``chip_smoke.py`` imports, then solving a small instance, a
+small batch, a sharded instance (plain and sharded hybrid), one with
+engine='candidates', two tracking families and one case of each fuzz
+family on the CPU through the native host runtime, with the device seed
+of the Hopcroft-Karp check (the overlapped, scaling and multi-process
+modules imported too), loads no jax and no file of the JAX package
+(``sslap_tpu/``), and the port's native library is its own build under
+``sslap_tpu_torch/_build/native/``.  Checked in a fresh interpreter (this
+test process has jax loaded by the test harness).
 """
 
 import json
@@ -31,6 +31,7 @@ import torch
 from sslap_tpu_torch import _native, feasibility, parallel
 from sslap_tpu_torch import calibrate, candidate, utils
 from sslap_tpu_torch.utils import checkpoint, liveness, profiling
+from sslap_tpu_torch.benchmarks import fuzz
 from sslap_tpu_torch.benchmarks import tracking as harness
 from sslap_tpu_torch.examples import basic, distributed, tracking
 rng = np.random.default_rng(0)
@@ -54,6 +55,8 @@ cand = P.AuctionSolver(loc=loc, val=val, shape=(n, n), mode="device",
                        engine="candidates", device="cpu").solve()
 records, _ = harness.run_families(n=300, frames=1, families="AB",
                                   device="cpu")
+fuzzed = fuzz.sweep(fuzz.case_list(0, 5, "all"), "cpu",
+                    log=lambda *a: None)
 seeded = feasibility.is_feasible(P.from_coo(loc, val, shape=(n, n)),
                                  device_seed=True, device="cpu")
 print(json.dumps({
@@ -66,7 +69,8 @@ print(json.dumps({
     and all(mt["soln_found"] for mt in metas) and seeded
     and sharded["meta"]["n_shards"] == 2 and hybrid["meta"]["soln_found"]
     and cand["meta"]["soln_found"] and calibrate.crossover() == 500_000
-    and all(r.get("found", True) for r in records),
+    and all(r.get("found", True) for r in records)
+    and not fuzzed["failures"],
 }))
 """
 
@@ -98,6 +102,7 @@ def test_port_loads_nothing_of_the_jax_package():
     assert "sslap_tpu_torch.parallel.sharded_compact" in names
     for mod in ("candidate", "calibrate", "utils", "utils.checkpoint",
                 "utils.liveness", "utils.profiling", "benchmarks.tracking",
+                "benchmarks.fuzz",
                 "examples.basic", "examples.tracking",
                 "examples.distributed"):
         assert f"sslap_tpu_torch.{mod}" in names
