@@ -40,6 +40,7 @@ from sslap_tpu_torch import hybrid as _hybrid
 from sslap_tpu_torch import ingest as _ingest
 from sslap_tpu_torch.config import AuctionConfig, ENGINES, GS_ENGINES, MODES
 from sslap_tpu_torch.ingest import ELLProblem
+from sslap_tpu_torch.utils import profiling as _prof
 
 
 class InfeasibleError(ValueError):
@@ -248,12 +249,20 @@ class AuctionSolver:
                 warm_prices = np.asarray(warm_prices) * warm_relax
             if warm_mode == "fr":
                 warm_fr = 2
+        with _prof.entry():
+            return self._solve(prob, warm_prices, warm_fr)
+
+    def _solve(self, prob: ELLProblem, warm_prices,
+               warm_fr: int) -> AuctionSolution:
         t0 = time.perf_counter()
-        if self.cardinality_check and not _feas.is_feasible(prob):
-            raise InfeasibleError(
-                "no perfect matching exists for this sparsity pattern "
-                "(detected by Hopcroft-Karp cardinality check; pass "
-                "cardinality_check=False to attempt anyway)")
+        if self.cardinality_check:
+            with _prof.span("hk"):
+                feasible = _feas.is_feasible(prob)
+            if not feasible:
+                raise InfeasibleError(
+                    "no perfect matching exists for this sparsity pattern "
+                    "(detected by Hopcroft-Karp cardinality check; pass "
+                    "cardinality_check=False to attempt anyway)")
         mode = self._resolve_mode()
         if mode in ("sharded", "overlapped", "sharded_hybrid"):
             return self._solve_sharded(mode, warm_prices, warm_fr)
@@ -278,11 +287,13 @@ class AuctionSolver:
             gs_engine=self.gs_engine, device=self.device)
         unassigned = hmeta["unassigned"] + n_empty
         soln_found = unassigned == 0 and hmeta.get("soln_found", True)
+        obj = None
+        if soln_found:
+            with _prof.span("objective"):
+                obj = _objective_host(prob, sol)
         self.prices = prices
         self.meta = dict(hmeta, unassigned=unassigned, soln_found=soln_found,
-                         obj=(_objective_host(prob, sol) if soln_found
-                              else None),
-                         time=time.perf_counter() - t0)
+                         obj=obj, time=time.perf_counter() - t0)
         return AuctionSolution(sol=sol, meta=self.meta, prices=self.prices)
 
     def _solve_sharded(self, mode: str, warm_prices,

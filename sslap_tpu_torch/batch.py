@@ -43,6 +43,7 @@ from sslap_tpu_torch import ingest as _ingest
 from sslap_tpu_torch.auction import DUMMY_OWNER, I32_MAX, neg_sentinel
 from sslap_tpu_torch.ingest import ELLProblem
 from sslap_tpu_torch.ops import bid_topk_batched, commit
+from sslap_tpu_torch.utils import profiling as _prof
 
 
 def stack_problems(probs: Sequence[ELLProblem]) -> ELLProblem:
@@ -182,6 +183,7 @@ def _auto_mode(prob: ELLProblem, needs_host_precision: bool, mesh, device,
     return "device"
 
 
+@_prof.entry()
 def auction_solve_batched(
     prob: ELLProblem,
     problem: str = "min",

@@ -38,6 +38,7 @@ from sslap_tpu_torch import hybrid as _hybrid
 from sslap_tpu_torch.auction import I32_MAX, neg_sentinel
 from sslap_tpu_torch.ingest import ELLProblem
 from sslap_tpu_torch.ops import commit, dense_bid
+from sslap_tpu_torch.utils import profiling as _prof
 
 
 
@@ -219,49 +220,50 @@ def solve_batched_dense_hybrid(
         raise RuntimeError("device='cuda' requested but no CUDA device is "
                            "available")
     t0 = time.perf_counter()
-    vals_np, valid_np = prob.vals, prob.valid
-    dtype = vals_np.dtype
-    skey = ("dense_scalars", B, n, K, str(dtype), prob.nnz, problem)
-    if device_cache is not None and device_cache.get("dense_skey") == skey:
-        vmax_abs, vmin_v, vmax_v = device_cache["dense_scalars"]
-    else:
-        if valid_np.any():
-            vv = vals_np[valid_np]
-            vmax_abs = float(np.abs(vv).max())
-            vmin_v, vmax_v = float(vv.min()), float(vv.max())
-            del vv
+    with _prof.span("host_tables"):
+        vals_np, valid_np = prob.vals, prob.valid
+        dtype = vals_np.dtype
+        skey = ("dense_scalars", B, n, K, str(dtype), prob.nnz, problem)
+        if device_cache is not None and device_cache.get("dense_skey") == skey:
+            vmax_abs, vmin_v, vmax_v = device_cache["dense_scalars"]
         else:
-            vmax_abs = vmin_v = vmax_v = 0.0
-        if device_cache is not None:
-            device_cache.update(dense_skey=skey,
-                                dense_scalars=(vmax_abs, vmin_v, vmax_v))
-    tr = _auction.make_transform(problem, m, dtype, vmax_abs,
-                                 int_exact=prob.int_exact)
-    e0, e_min, theta_v = _auction.default_eps_schedule(
-        dtype, vmax_abs, m, tr.scale, eps_min=eps_min, eps_start=eps_start,
-        theta=theta, int_exact=prob.int_exact)
-    if max_iter is None:
-        max_iter = _auction.default_max_iter(n)
-    itemsize = np.dtype(dtype).itemsize
-    if chunk is None:
-        chunk = max(1, min(B, dense_budget_bytes // (n * m * itemsize)))
-    # the flattened row and column ids of a chunk must fit int32
-    chunk = max(1, min(chunk, (I32_MAX - 1) // max(n, m)))
-    # bigp = transformed-value spread + 1, from the raw range (the
-    # transform is linear)
-    bigp = (abs(float(tr.sign * tr.scale)) * (vmax_v - vmin_v) + 1.0
-            if valid_np.any() else 1.0)
+            if valid_np.any():
+                vv = vals_np[valid_np]
+                vmax_abs = float(np.abs(vv).max())
+                vmin_v, vmax_v = float(vv.min()), float(vv.max())
+                del vv
+            else:
+                vmax_abs = vmin_v = vmax_v = 0.0
+            if device_cache is not None:
+                device_cache.update(dense_skey=skey,
+                                    dense_scalars=(vmax_abs, vmin_v, vmax_v))
+        tr = _auction.make_transform(problem, m, dtype, vmax_abs,
+                                     int_exact=prob.int_exact)
+        e0, e_min, theta_v = _auction.default_eps_schedule(
+            dtype, vmax_abs, m, tr.scale, eps_min=eps_min, eps_start=eps_start,
+            theta=theta, int_exact=prob.int_exact)
+        if max_iter is None:
+            max_iter = _auction.default_max_iter(n)
+        itemsize = np.dtype(dtype).itemsize
+        if chunk is None:
+            chunk = max(1, min(B, dense_budget_bytes // (n * m * itemsize)))
+        # the flattened row and column ids of a chunk must fit int32
+        chunk = max(1, min(chunk, (I32_MAX - 1) // max(n, m)))
+        # bigp = transformed-value spread + 1, from the raw range (the
+        # transform is linear)
+        bigp = (abs(float(tr.sign * tr.scale)) * (vmax_v - vmin_v) + 1.0
+                if valid_np.any() else 1.0)
 
-    cache_key = (B, n, K, str(dtype), tr.sign, tr.scale, prob.nnz)
-    if device_cache is not None and \
-            device_cache.get("dense_key") == cache_key:
-        csr = device_cache["dense_csr"]
-    else:
-        csr = _host_csr(prob, tr, B, n, m)
-        if device_cache is not None:
-            device_cache.update(dense_key=cache_key, dense_csr=csr)
-    (nvalid_all, counts, indptr_all, indices_flat, data_flat, inst_off,
-     obj_keys, obj_vals) = csr
+        cache_key = (B, n, K, str(dtype), tr.sign, tr.scale, prob.nnz)
+        if device_cache is not None and \
+                device_cache.get("dense_key") == cache_key:
+            csr = device_cache["dense_csr"]
+        else:
+            csr = _host_csr(prob, tr, B, n, m)
+            if device_cache is not None:
+                device_cache.update(dense_key=cache_key, dense_csr=csr)
+        (nvalid_all, counts, indptr_all, indices_flat, data_flat, inst_off,
+         obj_keys, obj_vals) = csr
 
     cache_chunks = device_cache is not None and chunk >= B
     scale = tr.sign * tr.scale
@@ -282,6 +284,7 @@ def solve_batched_dense_hybrid(
 
     results: "queue.Queue" = queue.Queue()
     stop = threading.Event()
+    caller = _prof.current()
 
     def device_loop():
         try:
@@ -291,15 +294,17 @@ def solve_batched_dense_hybrid(
                     if stop.is_set():
                         return
                     hi = min(lo + chunk, B)
-                    td = time.perf_counter()
-                    A, nv_d = chunk_block(lo, hi)
-                    out = _solve_dense(A, nv_d, e0, e_min, theta_v,
-                                       max_iter, bigp, trunc)
-                    del A, nv_d
-                    prices_h = out[0].cpu().numpy()
-                    sigma_h = out[1].cpu().numpy()
+                    # the chunk's share of meta["device_time"]
+                    with _prof.span("chunk_pass", parent=caller) as cp:
+                        with _prof.span("device_setup"):
+                            A, nv_d = chunk_block(lo, hi)
+                        out = _solve_dense(A, nv_d, e0, e_min, theta_v,
+                                           max_iter, bigp, trunc)
+                        del A, nv_d
+                        prices_h = out[0].cpu().numpy()
+                        sigma_h = out[1].cpu().numpy()
                     results.put((lo, hi, prices_h, sigma_h, *out[2:],
-                                 time.perf_counter() - td))
+                                 cp.t1 - cp.t0))
         except BaseException as e:   # raised in the calling thread
             results.put(e)
 
@@ -314,54 +319,59 @@ def solve_batched_dense_hybrid(
     worker.start()
     try:
         for _ in range(0, B, chunk):
-            item = results.get()
+            with _prof.span("queue_wait"):
+                item = results.get()
             if isinstance(item, BaseException):
                 raise item
             lo, hi, prices_h, sigma_h, rounds_h, phases_h, eps_h, d_s = item
             dev_s += d_s
-            tg0 = time.perf_counter()
-            for b in range(lo, hi):
-                i = b - lo
-                sl = slice(inst_off[b], inst_off[b + 1])
-                prices_b = prices_h[i].copy()
-                sigma_b = sigma_h[i].copy()
-                owner_b = np.full(m, -1, np.int32)
-                assigned = sigma_b >= 0
-                owner_b[sigma_b[assigned]] = \
-                    np.nonzero(assigned)[0].astype(np.int32)
-                bids = _hybrid._gs(indptr_all[b], indices_flat[sl],
-                                   data_flat[sl], prices_b, sigma_b, owner_b,
-                                   e_min_h, bigp_h, 0, 100 * n + 1_000_000)
-                unassigned = int(((sigma_b < 0) & (counts[b] > 0)).sum())
-                unassigned += int((nvalid_all[b] == 0).sum())
-                # a lane that stopped on max_iter above eps_min is not
-                # eps_min-optimal even when its GS tail completes it
-                eps_reached = bool(eps_h[i] <= e_min_h)
-                sols[b] = sigma_b
-                if return_prices:
-                    prices_out[b] = prices_b
-                metas.append({
-                    "obj": None,
-                    "its": int(rounds_h[i]),
-                    "phases": int(phases_h[i]),
-                    "host_bids": max(int(bids), 0),
-                    "soln_found": (unassigned == 0 and bids >= 0
-                                   and eps_reached),
-                    "final_eps": (float(e_min) if eps_reached
-                                  else float(eps_h[i])) / tr.scale,
-                    "unassigned": unassigned,
-                    "mode": "dense-hybrid",
-                })
-            gs_s += time.perf_counter() - tg0
+            with _prof.span("gs_tail") as tail:
+                for b in range(lo, hi):
+                    i = b - lo
+                    sl = slice(inst_off[b], inst_off[b + 1])
+                    prices_b = prices_h[i].copy()
+                    sigma_b = sigma_h[i].copy()
+                    owner_b = np.full(m, -1, np.int32)
+                    assigned = sigma_b >= 0
+                    owner_b[sigma_b[assigned]] = \
+                        np.nonzero(assigned)[0].astype(np.int32)
+                    bids = _hybrid._gs(indptr_all[b], indices_flat[sl],
+                                       data_flat[sl], prices_b, sigma_b,
+                                       owner_b, e_min_h, bigp_h, 0,
+                                       100 * n + 1_000_000)
+                    unassigned = int(((sigma_b < 0) & (counts[b] > 0)).sum())
+                    unassigned += int((nvalid_all[b] == 0).sum())
+                    # a lane that stopped on max_iter above eps_min is not
+                    # eps_min-optimal even when its GS tail completes it
+                    eps_reached = bool(eps_h[i] <= e_min_h)
+                    sols[b] = sigma_b
+                    if return_prices:
+                        prices_out[b] = prices_b
+                    metas.append({
+                        "obj": None,
+                        "its": int(rounds_h[i]),
+                        "phases": int(phases_h[i]),
+                        "host_bids": max(int(bids), 0),
+                        "soln_found": (unassigned == 0 and bids >= 0
+                                       and eps_reached),
+                        "final_eps": (float(e_min) if eps_reached
+                                      else float(eps_h[i])) / tr.scale,
+                        "unassigned": unassigned,
+                        "mode": "dense-hybrid",
+                    })
+            gs_s += tail.t1 - tail.t0
     finally:
         stop.set()
         worker.join()
 
-    acc = _objectives(prob, sols, obj_keys, obj_vals, B, n, m)
-    integral = np.issubdtype(prob.vals.dtype, np.integer) or prob.int_exact
-    for b, mt in enumerate(metas):
-        if mt["soln_found"]:
-            mt["obj"] = int(round(acc[b])) if integral else float(acc[b])
+    with _prof.span("objective"):
+        acc = _objectives(prob, sols, obj_keys, obj_vals, B, n, m)
+        integral = np.issubdtype(prob.vals.dtype, np.integer) \
+            or prob.int_exact
+        for b, mt in enumerate(metas):
+            if mt["soln_found"]:
+                mt["obj"] = int(round(acc[b])) if integral \
+                    else float(acc[b])
     total = time.perf_counter() - t0
     for mt in metas:
         mt["time"] = total

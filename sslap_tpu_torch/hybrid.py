@@ -43,6 +43,7 @@ from sslap_tpu_torch import auction as _auction
 from sslap_tpu_torch import candidate as _candidate
 from sslap_tpu_torch import compact as _compact
 from sslap_tpu_torch.ingest import ELLProblem
+from sslap_tpu_torch.utils import profiling as _prof
 
 if _native.auction_gs is not None:
     _gs, _unassign = _native.auction_gs, _native.unassign_violators_native
@@ -171,28 +172,24 @@ def _device_ell(prob: ELLProblem, tr, dev, device_cache):
 
 
 def _finish_square_fast_path(res, tier_rounds, indptr, indices, data,
-                             owner, e_min, bigp, tr, n, mode, t0, t_dev0,
+                             owner, e_min, bigp, tr, n, mode, t0, t_dev,
                              csc=None):
-    """Shared tail of the square hybrid: mark the end of the device pass,
-    read back, run the native finisher at eps_min, build the meta dict."""
-    if res.prices.device.type == "cuda":
-        torch.cuda.synchronize(res.prices.device)
-    t_dev = time.perf_counter() - t_dev0
-    t_rb0 = time.perf_counter()
-    # The native finisher mutates prices/sigma in place: writable,
-    # contiguous host copies, never views of device-shared buffers.
-    prices = np.array(res.prices.cpu().numpy(), order="C", copy=True)
-    sigma = np.array(res.sigma.cpu().numpy(), order="C", copy=True)
-    t_readback = time.perf_counter() - t_rb0
+    """Shared tail of the square hybrid, after the device pass (``t_dev``
+    seconds from ``t0``): read back, run the native finisher at eps_min,
+    build the meta dict."""
+    with _prof.span("readback") as rb:
+        # The native finisher mutates prices/sigma in place: writable,
+        # contiguous host copies, never views of device-shared buffers.
+        prices = np.array(res.prices.cpu().numpy(), order="C", copy=True)
+        sigma = np.array(res.sigma.cpu().numpy(), order="C", copy=True)
     owner[:] = -1
     assigned = sigma >= 0
     owner[sigma[assigned]] = np.nonzero(assigned)[0].astype(np.int32)
-    t_gs0 = time.perf_counter()
-    bids = _run_gs(indptr, indices, data, prices, sigma, owner, e_min, bigp,
-                   0, 100 * n + 10_000_000, csc=csc,
-                   profits=(np.zeros(n, prices.dtype)
-                            if csc is not None else None))
-    t_gs = time.perf_counter() - t_gs0
+    with _prof.span("gs_tail") as gs:
+        bids = _run_gs(indptr, indices, data, prices, sigma, owner, e_min,
+                       bigp, 0, 100 * n + 10_000_000, csc=csc,
+                       profits=(np.zeros(n, prices.dtype)
+                                if csc is not None else None))
     unassigned = int(((sigma < 0) & (np.diff(indptr) > 0)).sum())
     eps_reached = _auction.eps_reached(res.final_eps, e_min, data.dtype)
     meta = {
@@ -205,12 +202,37 @@ def _finish_square_fast_path(res, tier_rounds, indptr, indices, data,
         "soln_found": unassigned == 0 and bids >= 0 and eps_reached,
         "time": time.perf_counter() - t0,
         "device_time": t_dev,
-        "readback_time": t_readback,
-        "host_gs_time": t_gs,
+        "readback_time": rb.t1 - rb.t0,
+        "host_gs_time": gs.t1 - gs.t0,
         "tier_rounds": list(tier_rounds),
         "mode": mode,
     }
     return sigma, prices, meta
+
+
+def _ladder_setup(prob: ELLProblem, cache_key, device_cache, trunc: int,
+                  fine_ladder, wide_rounds, theta_tail, e0):
+    """The ladder's tiers, its wide-round flag (the skew guard's verdict,
+    cached per solver) and theta_tail in the dtype of the eps start, as
+    the reference hands it to its device program."""
+    n = prob.n
+    tiers = _compact.default_tiers(
+        n, fine=True if fine_ladder is None else bool(fine_ladder),
+        floor=trunc)
+    if wide_rounds is None:
+        wide_rounds = n >= 400_000
+    wide = False
+    if wide_rounds:
+        if device_cache is not None and \
+                device_cache.get("wide_key") == cache_key:
+            wide = device_cache["wide"]
+        else:
+            wide = _wide_layout_ok(prob.cols, prob.valid, prob.m)
+            if device_cache is not None:
+                device_cache.update(wide_key=cache_key, wide=wide)
+    tt = np.asarray(theta_tail,
+                    np.int32 if isinstance(e0, int) else np.float32)
+    return tiers, wide, tt
 
 
 def solve_hybrid(
@@ -257,48 +279,53 @@ def solve_hybrid(
                  else _auction.HOST_THETA)
     if theta_tail is None:
         theta_tail = 3.0 if square_hybrid and float(theta) > 5 else 0.0
-    vals_np, valid_np = prob.vals, prob.valid
-    dtype = vals_np.dtype
-    vmax_abs = float(np.abs(vals_np[valid_np]).max()) if valid_np.any() \
-        else 0.0
-    tr = _auction.make_transform(problem, m, dtype, vmax_abs,
-                                 int_exact=prob.int_exact)
-    e0, e_min, theta_v = _auction.default_eps_schedule(
-        dtype, vmax_abs, m, tr.scale, eps_min=eps_min, eps_start=eps_start,
-        theta=theta, int_exact=prob.int_exact)
-    if max_iter is None:
-        max_iter = _auction.default_max_iter(n)
+    with _prof.span("host_tables"):
+        vals_np, valid_np = prob.vals, prob.valid
+        dtype = vals_np.dtype
+        vmax_abs = float(np.abs(vals_np[valid_np]).max()) \
+            if valid_np.any() else 0.0
+        tr = _auction.make_transform(problem, m, dtype, vmax_abs,
+                                     int_exact=prob.int_exact)
+        e0, e_min, theta_v = _auction.default_eps_schedule(
+            dtype, vmax_abs, m, tr.scale, eps_min=eps_min,
+            eps_start=eps_start, theta=theta, int_exact=prob.int_exact)
+        if max_iter is None:
+            max_iter = _auction.default_max_iter(n)
 
-    csr_key = ("csr", tr.sign, tr.scale)
-    if device_cache is not None and device_cache.get("csr_key") == csr_key:
-        indptr, indices, data = device_cache["csr"]
-    else:
-        indptr, indices, data = ell_to_csr_transformed(prob, tr.sign,
-                                                       tr.scale)
-        if device_cache is not None:
-            device_cache.update(csr_key=csr_key, csr=(indptr, indices, data))
-    if gs_engine == "auto":   # FR tail on the square hybrid only
-        gs_engine = ("fr" if square_hybrid and n == m and native_available()
-                     else "forward")
-    csc = None
-    if gs_engine == "fr" and n == m and native_available():
-        if device_cache is not None and device_cache.get("csc_key") == csr_key:
-            csc = device_cache["csc"]
+        csr_key = ("csr", tr.sign, tr.scale)
+        if device_cache is not None and \
+                device_cache.get("csr_key") == csr_key:
+            indptr, indices, data = device_cache["csr"]
         else:
-            csc = _csr_to_csc(indptr, indices, data, n, m)
+            indptr, indices, data = ell_to_csr_transformed(prob, tr.sign,
+                                                           tr.scale)
             if device_cache is not None:
-                device_cache.update(csc_key=csr_key, csc=csc)
-    if valid_np.any():
-        bigp = (data.max() - data.min()) + \
-            (1 if np.issubdtype(dtype, np.integer) else 1.0)
-    else:
-        bigp = 1
-    is_int = np.issubdtype(dtype, np.integer) or prob.int_exact
+                device_cache.update(csr_key=csr_key,
+                                    csr=(indptr, indices, data))
+        if gs_engine == "auto":   # FR tail on the square hybrid only
+            gs_engine = ("fr" if square_hybrid and n == m
+                         and native_available() else "forward")
+        csc = None
+        if gs_engine == "fr" and n == m and native_available():
+            if device_cache is not None and \
+                    device_cache.get("csc_key") == csr_key:
+                csc = device_cache["csc"]
+            else:
+                csc = _csr_to_csc(indptr, indices, data, n, m)
+                if device_cache is not None:
+                    device_cache.update(csc_key=csr_key, csc=csc)
+        if valid_np.any():
+            bigp = (data.max() - data.min()) + \
+                (1 if np.issubdtype(dtype, np.integer) else 1.0)
+        else:
+            bigp = 1
+        is_int = np.issubdtype(dtype, np.integer) or prob.int_exact
+        prices = np.zeros(m, dtype) if warm_prices is None else \
+            np.array(warm_prices, dtype)
 
-    prices = np.zeros(m, dtype) if warm_prices is None else \
-        np.array(warm_prices, dtype)
     if warm_prices is not None and warm_fr > 0:
-        _auction.fr_tighten(indptr, indices, data, prices, iters=warm_fr)
+        with _prof.span("fr_tighten"):
+            _auction.fr_tighten(indptr, indices, data, prices, iters=warm_fr)
     sigma = np.full(n, -1, np.int32)
     owner = np.full(m, -1, np.int32)
 
@@ -308,54 +335,42 @@ def solve_hybrid(
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device "
                                "is available")
-        t0 = time.perf_counter()
-        cache_key, (cols_d, vals_d, nvalid_d) = _device_ell(
-            prob, tr, dev, device_cache)
-    if square_hybrid and engine == "candidates":
-        # the reference's non-compact square path: default_tiers(n), no
-        # mixed tail, the host bigp; the cached rows are already masked,
-        # as the engine masks its values
-        res, st = _candidate.solve_candidates(
-            cols_d, vals_d, nvalid_d, torch.from_numpy(prices).to(dev), e0,
-            e_min, theta_v, max_iter, bigp=bigp,
-            trunc=min(int(trunc), max(n // 8, 1)))
-        return _finish_square_fast_path(
-            res, st.tier_rounds, indptr, indices, data, owner, e_min, bigp,
-            tr, n, mode, t0, t0, csc=csc)
     if square_hybrid:
-        t_dev0 = t0
         trunc_static = min(int(trunc), max(n // 8, 1))
-        if fine_ladder is None:
-            fine_ladder = True
-        tiers = _compact.default_tiers(n, fine=bool(fine_ladder),
-                                       floor=trunc_static)
-        if wide_rounds is None:
-            wide_rounds = n >= 400_000
-        wide = False
-        if wide_rounds:
-            if device_cache is not None and \
-                    device_cache.get("wide_key") == cache_key:
-                wide = device_cache["wide"]
+        # meta["device_time"] is this span: from the first upload to the
+        # pass's end on the device
+        with _prof.span("device_pass") as dp:
+            with _prof.span("device_setup"):
+                cache_key, (cols_d, vals_d, nvalid_d) = _device_ell(
+                    prob, tr, dev, device_cache)
+                p0 = torch.from_numpy(prices).to(dev)
+                if engine != "candidates":
+                    tiers, wide, tt = _ladder_setup(
+                        prob, cache_key, device_cache, trunc_static,
+                        fine_ladder, wide_rounds, theta_tail, e0)
+            if engine == "candidates":
+                # the reference's non-compact square path: default_tiers(n),
+                # no mixed tail, the host bigp; the cached rows are already
+                # masked, as the engine masks its values
+                res, st = _candidate.solve_candidates(
+                    cols_d, vals_d, nvalid_d, p0, e0, e_min, theta_v,
+                    max_iter, bigp=bigp, trunc=trunc_static)
             else:
-                wide = _wide_layout_ok(prob.cols, valid_np, m)
-                if device_cache is not None:
-                    device_cache.update(wide_key=cache_key, wide=wide)
-        # theta_tail in the dtype of the eps start, as the reference
-        # hands it to its device program
-        tt = np.asarray(theta_tail,
-                        np.int32 if isinstance(e0, int) else np.float32)
-        res, st = _compact.solve_tiered(
-            cols_d, vals_d, nvalid_d, torch.from_numpy(prices).to(dev),
-            e0, e_min, theta_v, max_iter, bigp=bigp, tiers=tiers,
-            trunc=trunc_static, theta_tail=tt[()], tail_phases=tail_phases,
-            wide=wide)
+                res, st = _compact.solve_tiered(
+                    cols_d, vals_d, nvalid_d, p0, e0, e_min, theta_v,
+                    max_iter, bigp=bigp, tiers=tiers, trunc=trunc_static,
+                    theta_tail=tt[()], tail_phases=tail_phases, wide=wide)
+            if res.prices.device.type == "cuda":
+                torch.cuda.synchronize(res.prices.device)
         return _finish_square_fast_path(
             res, st.tier_rounds, indptr, indices, data, owner, e_min, bigp,
-            tr, n, mode, t0, t_dev0, csc=csc)
+            tr, n, mode, dp.t0, dp.t1 - dp.t0, csc=csc)
 
     # Per-phase loop: mode='cpu', or the rectangular hybrid, whose device
     # rounds run each phase down to ``threshold`` before the host GS.
     if use_device:
+        _, (cols_d, vals_d, nvalid_d) = _device_ell(prob, tr, dev,
+                                                    device_cache)
         d_prices = torch.from_numpy(prices).to(dev)
         keys = (torch.zeros(m, dtype=torch.int64, device=dev)
                 if dev.type == "cuda" else None)

@@ -26,11 +26,14 @@ import contextlib
 import datetime
 import os
 import threading
+import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from sslap_tpu_torch.utils import profiling as _prof
 
 
 def _initialised() -> bool:
@@ -232,7 +235,9 @@ class ThreadGroup:
     rank order on the first rank's device (and, in a ``ProcessSpanGroup``,
     across the processes); each rank, at its next turn, takes the result
     on its device.  All ranks must call the same collectives in the same
-    order; ``abort`` wakes every waiting rank with GroupAborted."""
+    order; ``abort`` wakes every waiting rank with GroupAborted.
+    ``turn_wait_s`` counts, per rank (in ``ranks`` order), the seconds
+    blocked waiting for a turn."""
 
     def __init__(self, ranks: Sequence[int], world: int):
         self.ranks = list(ranks)
@@ -244,9 +249,13 @@ class ThreadGroup:
         self._aborted = False
         self._slots: List[Optional[torch.Tensor]] = [None] * self.size
         self._result = None
+        self.turn_wait_s = [0.0] * self.size
 
     def wait_turn(self, rank: int) -> None:
-        self._go[self._index[rank]].acquire()
+        i = self._index[rank]
+        t0 = time.perf_counter()
+        self._go[i].acquire()
+        self.turn_wait_s[i] += time.perf_counter() - t0
         if self._aborted:
             raise GroupAborted("another shard failed")
 
@@ -362,30 +371,38 @@ def run_spmd(mesh: Mesh, fn: Callable) -> list:
     that raises aborts this process's group, and the first error is
     raised here once every thread has ended (the other processes'
     shards then wait in their next collective: the launcher's timeout
-    ends them)."""
+    ends them).  Each rank runs in a span ``shard_pass`` under the
+    caller's open span, with its turn wait counted."""
     ranks = mesh.local_ranks()
     if not ranks:
         raise ValueError("no entry of this mesh belongs to this process")
     cls = ProcessSpanGroup if mesh.spans_processes else ThreadGroup
     group = cls(ranks, len(mesh.devices))
     if len(ranks) == 1:
-        with _on(mesh.devices[ranks[0]]):
-            return [fn(ranks[0], group)]
+        with _prof.span("shard_pass", rank=ranks[0]) as sp, \
+                _on(mesh.devices[ranks[0]]):
+            out = [fn(ranks[0], group)]
+            sp.count("turn_wait_s", group.turn_wait_s[0])
+        return out
     results: dict = {}
     errors: dict = {}
+    caller = _prof.current()
 
-    def body(rank: int) -> None:
+    def body(i: int, rank: int) -> None:
         try:
-            group.wait_turn(rank)
-            with _on(mesh.devices[rank]):
-                results[rank] = fn(rank, group)
-            group.finish(rank)
+            with _prof.span("shard_pass", parent=caller, rank=rank) as sp:
+                group.wait_turn(rank)
+                with _on(mesh.devices[rank]):
+                    results[rank] = fn(rank, group)
+                group.finish(rank)
+                sp.count("turn_wait_s", group.turn_wait_s[i])
         except BaseException as e:          # re-raised by the caller below
             errors[rank] = e
             group.abort()
 
-    threads = [threading.Thread(target=body, args=(r,), daemon=True,
-                                name=f"shard-{r}") for r in ranks]
+    threads = [threading.Thread(target=body, args=(i, r), daemon=True,
+                                name=f"shard-{r}")
+               for i, r in enumerate(ranks)]
     for th in threads:
         th.start()
     for th in threads:

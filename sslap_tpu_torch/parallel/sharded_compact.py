@@ -67,6 +67,7 @@ from sslap_tpu_torch.parallel.mesh import Mesh, ThreadGroup, fetch_global, \
     make_mesh, put_global_args, run_spmd
 from sslap_tpu_torch.parallel.overlap import overlapped_phase
 from sslap_tpu_torch.parallel.sharded import gather_rows, make_pmax_combine
+from sslap_tpu_torch.utils import profiling as _prof
 
 
 def sharded_ladder_tiers(n_glob: int, m: int, n_shards: int
@@ -173,25 +174,36 @@ def solve_sharded_tiered(cols, vals_m, valid, nvalid, p0, eps0, eps_min,
         return balanced_cap(C, n_local, D, balance_floor)
 
     def run(rank: int, group: ThreadGroup):
+        shard_pass = _prof.current()    # run_spmd's span of this rank
         dev = mesh.devices[rank]
         off = rank * n_local
         t = lambda a: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(a[off:off + n_local])).to(dev)
-        c, v, ok, nv = t(cols), t(vals_m), t(valid), t(
-            nvalid.astype(np.int32))
-        prices = torch.from_numpy(p0.astype(vals_m.dtype)).to(dev)
-        owner = torch.full((m,), -1, dtype=torch.int32, device=dev)
-        sigma = torch.full((n_local,), -1, dtype=torch.int32, device=dev)
-        keys = torch.zeros(m, dtype=torch.int64, device=dev)
-        rows = torch.arange(n_local, dtype=torch.int32, device=dev)
-        gids = rows + off
+        with _prof.span("device_setup"):
+            c, v, ok, nv = t(cols), t(vals_m), t(valid), t(
+                nvalid.astype(np.int32))
+            prices = torch.from_numpy(p0.astype(vals_m.dtype)).to(dev)
+            owner = torch.full((m,), -1, dtype=torch.int32, device=dev)
+            sigma = torch.full((n_local,), -1, dtype=torch.int32,
+                               device=dev)
+            keys = torch.zeros(m, dtype=torch.int64, device=dev)
+            rows = torch.arange(n_local, dtype=torch.int32, device=dev)
+            gids = rows + off
         combine = make_pmax_combine(group, rank)
         tier_rounds = [0] * (3 + n_tiers)
-        st = dict(rounds=0, rebuilds=0)
+        st = dict(rounds=0, rebuilds=0, sync_s=0.0, syncs=0)
+
+        def host(x: torch.Tensor):
+            """``x`` on the host: waits for the shard's queued work."""
+            t0 = time.perf_counter()
+            out = x.tolist()
+            st["sync_s"] += time.perf_counter() - t0
+            st["syncs"] += 1
+            return out
 
         def count_active() -> int:
-            return int(group.all_reduce(
-                rank, _auction.count_unassigned_rows(sigma, nv), torch.add))
+            return int(host(group.all_reduce(
+                rank, _auction.count_unassigned_rows(sigma, nv), torch.add)))
 
         def after_round() -> None:
             st["rounds"] += 1
@@ -234,12 +246,11 @@ def solve_sharded_tiered(cols, vals_m, valid, nvalid, p0, eps0, eps_min,
                                 n_glob)
             new_ids = torch.sort(torch.cat([stay_my, ev_my])).values[:Cl]
             if not balance:
-                return (new_ids, *counts[:2].tolist())
+                return (new_ids, *host(counts[:2]))
             local = torch.stack([
                 (tgt < m).sum() - (stay_my < n_glob).sum(),
                 (ev_my < n_glob).sum(), (new_ids < n_glob).sum()])
-            return (new_ids,
-                    *torch.cat([counts[:2].long(), local]).tolist())
+            return (new_ids, *host(torch.cat([counts[:2].long(), local])))
 
         def run_phase(eps, first: bool) -> None:
             if first:
@@ -273,7 +284,7 @@ def solve_sharded_tiered(cols, vals_m, valid, nvalid, p0, eps0, eps_min,
             if not n_tiers:
                 return
             ids = active_ids(cap_local(tiers[0]))
-            lact = int(_auction.count_unassigned_rows(sigma, nv)) \
+            lact = int(host(_auction.count_unassigned_rows(sigma, nv))) \
                 if balance else 0
             for ti, C in enumerate(tiers):
                 floor = tiers[ti + 1] if ti + 1 < n_tiers else 0
@@ -303,11 +314,14 @@ def solve_sharded_tiered(cols, vals_m, valid, nvalid, p0, eps0, eps_min,
                                      tail_phases=tail_phases)
             run_phase(eps, first=False)
             phases += 1
-        tier_rounds[-1] = int(group.all_reduce(
-            rank, torch.tensor(st["rebuilds"], device=dev), torch.add))
+        tier_rounds[-1] = int(host(group.all_reduce(
+            rank, torch.tensor(st["rebuilds"], device=dev), torch.add)))
         res = _auction.SolveResult(sigma=sigma, prices=prices,
                                    rounds=st["rounds"], phases=phases,
                                    final_eps=eps, unassigned=count_active())
+        if shard_pass is not None:
+            shard_pass.count("sync_wait_s", st["sync_s"])
+            shard_pass.count("host_syncs", st["syncs"])
         return res, tier_rounds
 
     results = run_spmd(mesh, run)
@@ -385,7 +399,8 @@ def prepare_sharded_tiered(prob, D: int, *, problem: str = "min",
     p0 = (np.zeros((m,), vdtype) if warm_prices is None
           else _auction.validate_warm_prices(warm_prices, m).astype(vdtype))
     if warm_prices is not None and warm_fr > 0:
-        _auction.fr_tighten(indptr, indices, data_csr, p0, iters=warm_fr)
+        with _prof.span("fr_tighten"):
+            _auction.fr_tighten(indptr, indices, data_csr, p0, iters=warm_fr)
     vals_m = np.where(prob_p.valid, tr.apply(prob_p.vals),
                       _auction.neg_sentinel_np(vdtype))
     return TieredSetup(
@@ -396,6 +411,7 @@ def prepare_sharded_tiered(prob, D: int, *, problem: str = "min",
         n_pad=prob_p.n)
 
 
+@_prof.entry()
 def auction_solve_sharded_hybrid(
     mat=None,
     *,
@@ -450,29 +466,33 @@ def auction_solve_sharded_hybrid(
     if prob.vals.dtype == np.float64:
         raise ValueError("float64 costs ride the host CPU path "
                          "(mode='cpu'); the sharded hybrid is f32/int32")
-    if cardinality_check and not _feas.is_feasible(prob):
-        raise _api.InfeasibleError(
-            "no perfect matching exists for this sparsity pattern")
+    if cardinality_check:
+        with _prof.span("hk"):
+            feasible = _feas.is_feasible(prob)
+        if not feasible:
+            raise _api.InfeasibleError(
+                "no perfect matching exists for this sparsity pattern")
     if mesh is None:
         mesh = make_mesh(axis_name=axis_name)
     D = mesh.shape[axis_name]
     n, m = prob.n, prob.m
 
-    su = prepare_sharded_tiered(
-        prob, D, problem=problem, eps_start=eps_start, eps_min=eps_min,
-        theta=theta, theta_tail=theta_tail, tail_phases=tail_phases,
-        max_iter=max_iter, trunc=trunc, warm_prices=warm_prices,
-        warm_fr=warm_fr, tiers=tiers)
+    with _prof.span("host_tables"):
+        su = prepare_sharded_tiered(
+            prob, D, problem=problem, eps_start=eps_start, eps_min=eps_min,
+            theta=theta, theta_tail=theta_tail, tail_phases=tail_phases,
+            max_iter=max_iter, trunc=trunc, warm_prices=warm_prices,
+            warm_fr=warm_fr, tiers=tiers)
     n_pad, tiers = su.n_pad, su.kw["tiers"]
 
-    t_dev0 = time.perf_counter()
-    res, tier_rounds = solve_sharded_tiered(
-        *su.args, mesh=mesh, axis_name=axis_name, overlap=overlap,
-        balance=ladder_balance, balance_floor=balance_floor, **su.kw)
-    # copies: the GS tail writes prices and sigma in place
-    prices = np.array(res.prices.cpu().numpy(), order="C", copy=True)
-    sigma = np.array(fetch_global(res.sigma)[:n], order="C", copy=True)
-    t_dev = time.perf_counter() - t_dev0
+    # meta["device_time"] is this span: the shards' passes and the read back
+    with _prof.span("device_pass") as dp:
+        res, tier_rounds = solve_sharded_tiered(
+            *su.args, mesh=mesh, axis_name=axis_name, overlap=overlap,
+            balance=ladder_balance, balance_floor=balance_floor, **su.kw)
+        # copies: the GS tail writes prices and sigma in place
+        prices = np.array(res.prices.cpu().numpy(), order="C", copy=True)
+        sigma = np.array(fetch_global(res.sigma)[:n], order="C", copy=True)
 
     # the host GS tail, on every process (the prices are replicated)
     owner = np.full(m, -1, np.int32)
@@ -480,17 +500,20 @@ def auction_solve_sharded_hybrid(
     owner[sigma[assigned]] = np.nonzero(assigned)[0].astype(np.int32)
     e_min_v = np.asarray(su.e_min, prob.vals.dtype)
     indptr = su.csr[0]
-    t_gs0 = time.perf_counter()
-    bids = _hybrid._gs(*su.csr, prices, sigma, owner, e_min_v, su.bigp, 0,
-                       100 * n + 10_000_000)
-    t_gs = time.perf_counter() - t_gs0
+    with _prof.span("gs_tail") as gs:
+        bids = _hybrid._gs(*su.csr, prices, sigma, owner, e_min_v, su.bigp,
+                           0, 100 * n + 10_000_000)
 
     unassigned = int(((sigma < 0) & (np.diff(indptr) > 0)).sum())
     eps_reached = _auction.eps_reached(res.final_eps, su.e_min,
                                        prob.vals.dtype)
     soln_found = unassigned == 0 and bids >= 0 and eps_reached
+    obj = None
+    if soln_found:
+        with _prof.span("objective"):
+            obj = _api._objective_host(prob, sigma)
     meta = {
-        "obj": _api._objective_host(prob, sigma) if soln_found else None,
+        "obj": obj,
         "its": int(res.rounds),
         "host_bids": max(int(bids), 0),
         "phases": int(res.phases),
@@ -499,8 +522,8 @@ def auction_solve_sharded_hybrid(
         "unassigned": unassigned,
         "soln_found": soln_found,
         "time": time.perf_counter() - t0,
-        "device_time": t_dev,
-        "host_gs_time": t_gs,
+        "device_time": dp.t1 - dp.t0,
+        "host_gs_time": gs.t1 - gs.t0,
         "tier_rounds": tier_rounds[:-1],
         "ladder_rebuilds": tier_rounds[-1],
         "n_shards": int(D),

@@ -1,6 +1,8 @@
 """Checkpoints, tracing and a device liveness probe.  Counterpart of
 ``sslap_tpu/utils``: a snapshot crosses between the two packages in both
-directions; traces are torch.profiler's (with NVTX ranges on the card)."""
+directions; tracing is the program's own spans and counters
+(``profiling.span``) and torch.profiler's traces (with NVTX ranges on
+the card)."""
 
 from sslap_tpu_torch.utils.checkpoint import load_state, save_state
 from sslap_tpu_torch.utils.liveness import device_alive

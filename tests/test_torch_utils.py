@@ -1,7 +1,7 @@
 """The port's utils (sslap_tpu_torch.utils) against the reference's
-(sslap_tpu.utils): snapshots cross between the packages both ways, the
-throughput counters equal the reference's under the renamed key, and the
-torch.profiler trace and the liveness probe work on the CPU."""
+(sslap_tpu.utils): snapshots cross between the packages both ways, and
+the torch.profiler trace and the liveness probe work on the CPU (the
+span recorder's tests are ``test_torch_tracing.py``)."""
 
 import glob
 import json
@@ -12,12 +12,10 @@ import pytest
 import torch
 
 from sslap_tpu.utils import checkpoint as RCK
-from sslap_tpu.utils import profiling as RPF
 from sslap_tpu_torch.utils import device_alive, load_state, \
     profile_trace, save_state, trace_annotation
 from sslap_tpu_torch.utils import checkpoint as PCK
 from sslap_tpu_torch.utils import liveness as PLV
-from sslap_tpu_torch.utils import profiling as PPF
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.float64])
@@ -47,16 +45,6 @@ def test_snapshot_of_a_tensor_and_the_version_error(tmp_path):
         with pytest.raises(ValueError, match="unsupported checkpoint "
                                              "version: 2"):
             load(bad)
-
-
-@pytest.mark.parametrize("meta", [
-    {"time": 2.0, "its": 500}, {"its": 7}, {"time": 0.5},
-    {"time": 1.25, "its": 0, "phases": 3}])
-def test_throughput_counters_rename_nnz_per_s(meta):
-    ref = RPF.throughput_counters(10_000, meta)
-    got = PPF.throughput_counters(10_000, meta)
-    assert got.pop("touched_nnz_per_s") == ref.pop("nnz_per_s")
-    assert got == ref
 
 
 def test_profile_trace_holds_the_annotation(tmp_path):
