@@ -26,6 +26,7 @@ if _lib is not None:
     auction_gs = _build.auction_gs
     auction_gs_fr = _build.auction_gs_fr
     build_ell_native = _build.build_ell_native
+    csr_to_csc_native = _build.csr_to_csc_native
     ell_to_csr_native = _build.ell_to_csr_native
     fr_tighten_native = _build.fr_tighten_native
     hopcroft_karp_native = _build.hopcroft_karp_native
@@ -36,6 +37,7 @@ else:  # no toolchain: callers use the numpy paths
     auction_gs = None
     auction_gs_fr = None
     build_ell_native = None
+    csr_to_csc_native = None
     ell_to_csr_native = None
     fr_tighten_native = None
     hopcroft_karp_native = None

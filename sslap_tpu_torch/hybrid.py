@@ -78,9 +78,15 @@ def ell_to_csr_transformed(prob: ELLProblem, sign: int, scale: int
 
 def _csr_to_csc(indptr, indices, data, n, m):
     """Column-major twin of the host CSR (for the FR engine's reverse
-    passes).  One nnz extent, ``indptr[-1]``, bounds the argsort, the
-    gathers AND the column counts, so an over-allocated ``indices`` buffer
-    cannot leak entries past nnz into the counts."""
+    passes): the native stable counting sort, else numpy's stable argsort,
+    which the native output equals bit for bit.  One nnz extent,
+    ``indptr[-1]``, bounds the argsort, the gathers AND the column counts,
+    so an over-allocated ``indices`` buffer cannot leak entries past nnz
+    into the counts."""
+    if _native.csr_to_csc_native is not None:
+        out = _native.csr_to_csc_native(indptr, indices, data, n, m)
+        if out is not None:
+            return out
     nnz = int(indptr[-1])
     ind = np.asarray(indices)[:nnz]
     rows_flat = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
@@ -311,7 +317,8 @@ def solve_hybrid(
                     device_cache.get("csc_key") == csr_key:
                 csc = device_cache["csc"]
             else:
-                csc = _csr_to_csc(indptr, indices, data, n, m)
+                with _prof.span("csc"):
+                    csc = _csr_to_csc(indptr, indices, data, n, m)
                 if device_cache is not None:
                     device_cache.update(csc_key=csr_key, csc=csc)
         if valid_np.any():

@@ -50,7 +50,7 @@ def load_native() -> Optional[ctypes.CDLL]:
             tmp = so.with_suffix(f".tmp{os.getpid()}.so")
             cmd = [
                 "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                "-march=native", str(_SRC), "-o", str(tmp),
+                "-march=native", "-pthread", str(_SRC), "-o", str(tmp),
             ]
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
             os.replace(tmp, so)
@@ -111,6 +111,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sslap_ell_to_csr_i32.argtypes = [
         ctypes.c_int64, ctypes.c_int64, i32p, i32p, b8p,
         ctypes.c_int32, i64p, i32p, i32p]
+    for nm, fp in (("sslap_csr_to_csc_f32", f32p),
+                   ("sslap_csr_to_csc_f64", f64p),
+                   ("sslap_csr_to_csc_i32", i32p)):
+        fn = getattr(lib, nm)
+        fn.restype = None
+        fn.argtypes = [ctypes.c_int64, ctypes.c_int64, i64p, i32p, fp,
+                       i64p, i32p, fp]
     lib.sslap_eps_cs_stats_f32.restype = None
     lib.sslap_eps_cs_stats_f32.argtypes = [
         ctypes.c_int64, ctypes.c_int64, i32p, f32p, b8p, f32p, i32p,
@@ -282,6 +289,44 @@ def ell_to_csr_native(cols: np.ndarray, vals: np.ndarray,
        _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
        _ptr(data, ct))
     return indptr, indices, data
+
+
+def csr_to_csc_native(indptr: np.ndarray, indices: np.ndarray,
+                      data: np.ndarray, n: int, m: int
+                      ) -> Optional[Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray]]:
+    """Column-major twin of a CSR by a stable counting sort over the rows
+    (threads above ~1M entries): (cindptr int64 [m+1], cindices int32
+    [nnz], cvals data.dtype [nnz]), equal bit for bit to numpy's stable
+    argsort of ``indices``.  ``indptr[-1]`` is the one nnz extent; longer
+    ``indices``/``data`` buffers are read only up to it.  Returns None when
+    the native library / dtype is unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    dtype = data.dtype
+    if dtype == np.float32:
+        fn, ct = lib.sslap_csr_to_csc_f32, ctypes.c_float
+    elif dtype == np.float64:
+        fn, ct = lib.sslap_csr_to_csc_f64, ctypes.c_double
+    elif dtype == np.int32:
+        fn, ct = lib.sslap_csr_to_csc_i32, ctypes.c_int32
+    else:
+        return None
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    nnz = int(indptr[-1])
+    if indptr.shape != (n + 1,) or indices.shape[0] < nnz \
+            or data.shape[0] < nnz:
+        raise ValueError("CSR arrays shorter than indptr says")
+    indices = np.ascontiguousarray(indices[:nnz], np.int32)
+    data = np.ascontiguousarray(data[:nnz])
+    cindptr = np.empty(m + 1, np.int64)
+    cindices = np.empty(nnz, np.int32)
+    cvals = np.empty(nnz, dtype)
+    fn(n, m, _ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+       _ptr(data, ct), _ptr(cindptr, ctypes.c_int64),
+       _ptr(cindices, ctypes.c_int32), _ptr(cvals, ct))
+    return cindptr, cindices, cvals
 
 
 def eps_cs_stats(cols: np.ndarray, vals: np.ndarray, valid: np.ndarray,

@@ -6,8 +6,9 @@
 // path but on the end-to-end critical path for large instances:
 //   * Hopcroft-Karp maximum bipartite matching over CSR (feasibility check)
 //   * COO -> padded-ELL layout building (ingest for ~1e7+ nnz problems)
+//   * CSR -> CSC transpose (the FR tail's column table)
 //
-// Build: g++ -O3 -march=native -shared -fPIC (see build.py).
+// Build: g++ -O3 -march=native -shared -fPIC -pthread (see build.py).
 
 #include <algorithm>
 #include <cmath>
@@ -15,6 +16,8 @@
 #include <cstring>
 #include <limits>
 #include <numeric>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 // ---------------------------------------------------------------------------
@@ -420,6 +423,98 @@ void ell_to_csr_impl(int64_t n, int64_t K, const int32_t* cols,
   }
 }
 
+// ---------------------------------------------------------------------------
+// CSR -> CSC transpose (the FR engine's column table), a stable counting
+// sort: rows are visited in order, so each column lists its rows
+// ascending -- the order np.argsort(indices, kind="stable") gives, and the
+// output equals the numpy path (hybrid._csr_to_csc) bit for bit.  One nnz
+// extent, indptr[n], bounds every read.  The rows are cut into nt
+// contiguous chunks of about equal nnz: each thread counts its chunk's
+// entries per column, one exclusive prefix over (column, chunk) gives each
+// (chunk, column) pair its first slot, and each thread scatters its own
+// rows.  Chunk order within a column is row order, so every nt gives the
+// same output.  C, the counter type, is int32 while nnz < 2^31.
+// ---------------------------------------------------------------------------
+
+constexpr int64_t kCscEntriesPerThread = int64_t(1) << 20;
+constexpr int64_t kCscMaxThreads = 8;
+
+int64_t csc_threads(int64_t nnz) {
+  const int64_t hw = std::thread::hardware_concurrency();
+  return std::max<int64_t>(
+      1, std::min({hw, kCscMaxThreads, nnz / kCscEntriesPerThread}));
+}
+
+// f(0..nt-1), f(0) on the calling thread; a chunk whose thread cannot be
+// started runs on the calling thread too.
+template <typename F>
+void run_chunks(int64_t nt, const F& f) {
+  std::vector<std::thread> pool;
+  std::vector<int64_t> inline_chunks;
+  for (int64_t t = 1; t < nt; ++t) {
+    try {
+      pool.emplace_back(f, t);
+    } catch (const std::system_error&) {
+      inline_chunks.push_back(t);
+    }
+  }
+  f(0);
+  for (int64_t t : inline_chunks) f(t);
+  for (auto& th : pool) th.join();
+}
+
+template <typename T, typename C>
+void csr_to_csc_impl(int64_t n, int64_t m, int64_t nt, const int64_t* indptr,
+                     const int32_t* indices, const T* data, int64_t* cindptr,
+                     int32_t* cindices, T* cvals) {
+  const int64_t nnz = indptr[n];
+  // chunk t: rows [lo[t], lo[t + 1]), from the first row whose entries
+  // start at or after t * nnz / nt
+  std::vector<int64_t> lo(nt + 1, n);
+  for (int64_t t = 0; t < nt; ++t)
+    lo[t] = std::lower_bound(indptr, indptr + n, t * nnz / nt) - indptr;
+  std::vector<C> cnt(nt * m);  // [chunk][column]
+  run_chunks(nt, [&](int64_t t) {
+    C* ct = cnt.data() + t * m;
+    for (int64_t p = indptr[lo[t]], e = indptr[lo[t + 1]]; p < e; ++p)
+      ++ct[indices[p]];
+  });
+  int64_t run = 0;
+  cindptr[0] = 0;
+  for (int64_t c = 0; c < m; ++c) {
+    for (int64_t t = 0; t < nt; ++t) {
+      const C k = cnt[t * m + c];
+      cnt[t * m + c] = static_cast<C>(run);
+      run += k;
+    }
+    cindptr[c + 1] = run;
+  }
+  run_chunks(nt, [&](int64_t t) {
+    C* cur = cnt.data() + t * m;
+    for (int64_t u = lo[t]; u < lo[t + 1]; ++u) {
+      for (int64_t p = indptr[u], e = indptr[u + 1]; p < e; ++p) {
+        const C q = cur[indices[p]]++;
+        cindices[q] = static_cast<int32_t>(u);
+        cvals[q] = data[p];
+      }
+    }
+  });
+}
+
+template <typename T>
+void csr_to_csc(int64_t n, int64_t m, const int64_t* indptr,
+                const int32_t* indices, const T* data, int64_t* cindptr,
+                int32_t* cindices, T* cvals) {
+  const int64_t nnz = indptr[n];
+  const int64_t nt = csc_threads(nnz);
+  if (nnz < (int64_t(1) << 31))
+    csr_to_csc_impl<T, int32_t>(n, m, nt, indptr, indices, data, cindptr,
+                                cindices, cvals);
+  else
+    csr_to_csc_impl<T, int64_t>(n, m, nt, indptr, indices, data, cindptr,
+                                cindices, cvals);
+}
+
 }  // namespace
 
 extern "C" {
@@ -446,6 +541,26 @@ void sslap_ell_to_csr_i32(int64_t n, int64_t K, const int32_t* cols,
                           int32_t* indices, int32_t* data) {
   ell_to_csr_impl<int32_t>(n, K, cols, vals, valid, sign_scale, indptr,
                            indices, data);
+}
+
+void sslap_csr_to_csc_f32(int64_t n, int64_t m, const int64_t* indptr,
+                          const int32_t* indices, const float* data,
+                          int64_t* cindptr, int32_t* cindices, float* cvals) {
+  csr_to_csc<float>(n, m, indptr, indices, data, cindptr, cindices, cvals);
+}
+
+void sslap_csr_to_csc_f64(int64_t n, int64_t m, const int64_t* indptr,
+                          const int32_t* indices, const double* data,
+                          int64_t* cindptr, int32_t* cindices,
+                          double* cvals) {
+  csr_to_csc<double>(n, m, indptr, indices, data, cindptr, cindices, cvals);
+}
+
+void sslap_csr_to_csc_i32(int64_t n, int64_t m, const int64_t* indptr,
+                          const int32_t* indices, const int32_t* data,
+                          int64_t* cindptr, int32_t* cindices,
+                          int32_t* cvals) {
+  csr_to_csc<int32_t>(n, m, indptr, indices, data, cindptr, cindices, cvals);
 }
 
 // ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from scipy.optimize import linear_sum_assignment as scipy_lsa
 from sslap_tpu import hybrid as RH
 from sslap_tpu import ingest as RI
 from sslap_tpu_torch import hybrid as PH
+from sslap_tpu_torch.utils import profiling as prof
 from tests.utils import random_sparse_instance, scipy_sparse_objective
 
 REPO = Path(__file__).resolve().parent.parent
@@ -446,6 +447,85 @@ def test_csr_to_csc_ignores_over_allocated_indices():
     dense[np.repeat(np.arange(n), np.diff(indptr)), indices] = data
     cols = np.repeat(np.arange(n), np.diff(cindptr))
     np.testing.assert_array_equal(dense[cindices, cols], cvals)
+
+
+def _numpy_csc(monkeypatch, *args):
+    """``_csr_to_csc`` with the native transpose taken away: numpy's
+    stable argsort."""
+    with monkeypatch.context() as mp:
+        mp.setattr(PH._native, "csr_to_csc_native", None)
+        return PH._csr_to_csc(*args)
+
+
+def _csr_case(case, dtype):
+    """A random CSR (indptr, indices, data, n, m) with empty rows and empty
+    columns; 'threaded' is above the native transpose's one-thread cut-off
+    (2**20 entries a thread), 'over_allocated' has junk past nnz."""
+    rng = np.random.default_rng(27)
+    n, m, k = {"small": (500, 500, 6), "rect": (300, 700, 5),
+               "over_allocated": (400, 400, 7),
+               "threaded": (300_000, 350_000, 11)}[case]
+    counts = rng.integers(0, 2 * k, n)
+    counts[rng.random(n) < 0.1] = 0                      # empty rows
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, m - m // 10, nnz).astype(np.int32)  # empty cols
+    if dtype == np.int32:
+        data = rng.integers(-1000, 1000, nnz).astype(np.int32)
+    else:
+        data = rng.standard_normal(nnz).astype(dtype)
+    if case == "over_allocated":
+        indices = np.concatenate([indices, np.full(57, 3, np.int32)])
+        data = np.concatenate([data, np.ones(57, dtype)])
+    return indptr, indices, data, n, m
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32])
+@pytest.mark.parametrize("case", ["small", "rect", "over_allocated",
+                                  "threaded"])
+def test_native_csc_equals_numpy_bit_for_bit(monkeypatch, case, dtype):
+    if not PH.native_available():
+        pytest.skip("native runtime not built")
+    args = _csr_case(case, dtype)
+    got = P._native.csr_to_csc_native(*args)
+    want = _numpy_csc(monkeypatch, *args)
+    nnz = int(args[0][-1])
+    assert got[0].shape == (args[4] + 1,) and got[1].shape == (nnz,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    if case == "over_allocated":       # junk past nnz changes nothing
+        exact = _numpy_csc(monkeypatch, args[0], args[1][:nnz],
+                           args[2][:nnz], args[3], args[4])
+        for a, b in zip(got, exact):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("mode", ["hybrid", "cpu"])
+def test_fr_tail_same_with_native_and_numpy_csc(monkeypatch, integer, mode):
+    """The square solve's FR tail reads the native CSC and numpy's alike:
+    the same sigma, prices, host bids and rounds; the build is the
+    ``csc`` span inside ``host_tables``."""
+    if not PH.native_available():
+        pytest.skip("native runtime not built")
+    n = 1500
+    loc, val = _instance(28, n, integer)
+    kw = dict(loc=loc, val=val, shape=(n, n), mode=mode, device="cpu",
+              gs_engine="fr")
+    prof.clear()
+    nat = P.AuctionSolver(**kw).solve()
+    recs = {r["id"]: r for r in prof.spans()}
+    csc = [r for r in recs.values() if r["name"] == "csc"]
+    assert len(csc) == 1 and recs[csc[0]["parent"]]["name"] == "host_tables"
+    monkeypatch.setattr(PH._native, "csr_to_csc_native", None)
+    ref = P.AuctionSolver(**kw).solve()
+    np.testing.assert_array_equal(nat["sol"], ref["sol"])
+    np.testing.assert_array_equal(_bits(nat["prices"]), _bits(ref["prices"]))
+    for k in ("its", "host_bids", "final_eps", "obj", "soln_found"):
+        assert nat["meta"][k] == ref["meta"][k], k
+    assert nat["meta"]["host_bids"] > 0
 
 
 def test_import_leaves_jax_out():

@@ -58,7 +58,7 @@ def test_hybrid_solve_records_the_root_and_its_children():
     assert res["meta"]["soln_found"]
     recs = prof.spans()
     names = _by_name(recs)
-    assert set(names) == {"solve"} | HYBRID_CHILDREN
+    assert set(names) == {"solve", "csc"} | HYBRID_CHILDREN
     (root,) = names["solve"]
     assert root["parent"] is None and root["root"] == root["id"]
     for r in recs:
@@ -67,6 +67,8 @@ def test_hybrid_solve_records_the_root_and_its_children():
         assert root["t0"] <= r["t0"] <= r["t1"] <= root["t1"]
     assert names["device_setup"][0]["parent"] == \
         names["device_pass"][0]["id"]
+    # the FR tail's CSC is built inside host_tables
+    assert names["csc"][0]["parent"] == names["host_tables"][0]["id"]
     # the root's children on the calling thread do not overlap
     kids = sorted((r["t0"], r["t1"]) for r in recs
                   if r["parent"] == root["id"])
@@ -98,7 +100,7 @@ def test_a_second_solve_on_cached_tables_records_a_new_root():
     s, _ = _solve(mode="hybrid")
     first = _by_name(prof.spans())["solve"][0]
     prof.clear()
-    res = s.solve()                         # tables from the solver's cache
+    res = s.solve()         # tables, the CSC too, from the solver's cache
     assert res["meta"]["soln_found"]
     recs = prof.spans()
     names = _by_name(recs)
