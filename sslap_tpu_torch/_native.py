@@ -32,6 +32,7 @@ if _lib is not None:
     hopcroft_karp_native = _build.hopcroft_karp_native
     hopcroft_karp_native_i32 = _build.hopcroft_karp_native_i32
     hopcroft_karp_warm_native = _build.hopcroft_karp_warm_native
+    max_matching_size_native_i32 = _build.max_matching_size_native_i32
     unassign_violators_native = _build.unassign_violators_native
 else:  # no toolchain: callers use the numpy paths
     auction_gs = None
@@ -43,4 +44,5 @@ else:  # no toolchain: callers use the numpy paths
     hopcroft_karp_native = None
     hopcroft_karp_native_i32 = None
     hopcroft_karp_warm_native = None
+    max_matching_size_native_i32 = None
     unassign_violators_native = None

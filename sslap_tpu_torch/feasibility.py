@@ -1,11 +1,14 @@
-"""Hopcroft-Karp maximum bipartite matching (host): the solver's
+"""Hopcroft-Karp maximum bipartite matching (host), and the solver's
 cardinality pre-check.  Counterpart of ``sslap_tpu/feasibility.py``; the
 native C++ matcher is the shared one, and the pure-Python path below is
-its no-toolchain fallback with the same scan order.  ``device_seed=True``
-first runs the device greedy maximal matching (``feasibility_device``) and
-warm-starts the augmentation from it; off by default, as in the
-reference.  Unlike the reference, a device seed that fails raises: there
-is no fallback to the host seed.
+its no-toolchain fallback with the same scan order.  ``is_feasible``
+needs only the size of a maximum matching, which every maximum matching
+shares: with the native library and int32 indices it computes it by the
+native Pothen-Fan+ matcher, else by ``hopcroft_karp``.
+``device_seed=True`` first runs the device greedy maximal matching
+(``feasibility_device``) and warm-starts the augmentation from it; off by
+default, as in the reference.  Unlike the reference, a device seed that
+fails raises: there is no fallback to the host seed.
 """
 
 from __future__ import annotations
@@ -16,8 +19,11 @@ import numpy as np
 
 from sslap_tpu_torch import _native
 from sslap_tpu_torch.ingest import ELLProblem
+from sslap_tpu_torch.utils import profiling as _prof
 
 _INF = np.int64(2 ** 62)
+# rows and columns the native size-only matcher takes (int32 indices)
+_SIZE_NATIVE_MAX = 2 ** 31
 
 
 def _ell_to_csr(prob: ELLProblem) -> Tuple[np.ndarray, np.ndarray]:
@@ -177,11 +183,28 @@ def hopcroft_karp(prob: ELLProblem, use_native: bool = True,
 
 def is_feasible(prob: ELLProblem, use_native: bool = True,
                 device_seed: Optional[bool] = None, device="cuda") -> bool:
-    """True iff a perfect (all-rows) matching exists."""
+    """True iff a perfect (all-rows) matching exists.  The native
+    Pothen-Fan+ matcher counts its passes over the free rows and the rows
+    it matched after the seed on the open ``hk`` span (counters
+    ``passes``, ``augmented``)."""
     if prob.n == 0:
         return True
     if (prob.nvalid == 0).any():
         return False
-    _, _, size = hopcroft_karp(prob, use_native=use_native,
-                               device_seed=device_seed, device=device)
+    if not (use_native and _native.max_matching_size_native_i32 is not None
+            and max(prob.n, prob.m) < _SIZE_NATIVE_MAX):
+        _, _, size = hopcroft_karp(prob, use_native=use_native,
+                                   device_seed=device_seed, device=device)
+        return size == prob.n
+    indptr, indices = _ell_to_csr(prob)
+    init = None
+    if device_seed:
+        from sslap_tpu_torch import feasibility_device as _fd
+        init = _fd.greedy_matching(prob, device=device)
+    size, passes, augmented = _native.max_matching_size_native_i32(
+        indptr, indices, prob.n, prob.m, init_match=init)
+    sp = _prof.current()
+    if sp is not None and sp.name == "hk":
+        sp.count("passes", passes)
+        sp.count("augmented", augmented)
     return size == prob.n

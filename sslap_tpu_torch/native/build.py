@@ -78,6 +78,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sslap_hopcroft_karp_warm_i32.restype = ctypes.c_int64
     lib.sslap_hopcroft_karp_warm_i32.argtypes = \
         lib.sslap_hopcroft_karp_i32.argtypes
+    lib.sslap_max_matching_size_i32.restype = ctypes.c_int64
+    lib.sslap_max_matching_size_i32.argtypes = [
+        i64p, i32p, ctypes.c_int64, ctypes.c_int64, i32p, i32p, i64p]
+    lib.sslap_max_matching_size_warm_i32.restype = ctypes.c_int64
+    lib.sslap_max_matching_size_warm_i32.argtypes = \
+        lib.sslap_max_matching_size_i32.argtypes
     lib.sslap_rowpack_fill_f32.restype = None
     lib.sslap_rowpack_fill_f32.argtypes = [
         ctypes.c_int64, ctypes.c_int64, i32p, f32p, b8p, i32p,
@@ -253,6 +259,40 @@ def hopcroft_karp_native_i32(indptr: np.ndarray, indices: np.ndarray,
             n, m, _ptr(match_row, ctypes.c_int32),
             _ptr(match_col, ctypes.c_int32))
     return match_row, match_col, int(size)
+
+
+def max_matching_size_native_i32(indptr: np.ndarray, indices: np.ndarray,
+                                 n: int, m: int,
+                                 init_match: Optional[Tuple[np.ndarray,
+                                                            np.ndarray]] = None
+                                 ) -> Tuple[int, int, int]:
+    """Size of a maximum matching over an int32-index CSR (n, m < 2^31) by
+    Pothen-Fan+ (``max_matching_size_impl`` in sslap_native.cpp), seeded
+    by HK's greedy pass or by ``init_match`` (a consistent partial
+    matching, not modified).  Returns (size, passes over the free rows,
+    rows matched after the seed); the matching itself is not kept."""
+    lib = load_native()
+    assert lib is not None
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    indices = np.ascontiguousarray(indices, np.int32)
+    if indptr.shape != (n + 1,) or indices.shape[0] < indptr[-1]:
+        raise ValueError("CSR arrays shorter than indptr says")
+    if init_match is not None and (init_match[0].shape != (n,)
+                                   or init_match[1].shape != (m,)):
+        raise ValueError("init_match must be arrays of n and m entries")
+    stats = np.zeros(2, np.int64)
+    if init_match is None:
+        match_row = np.empty(n, np.int32)
+        match_col = np.empty(m, np.int32)
+        fn = lib.sslap_max_matching_size_i32
+    else:
+        match_row = np.ascontiguousarray(init_match[0], np.int32).copy()
+        match_col = np.ascontiguousarray(init_match[1], np.int32).copy()
+        fn = lib.sslap_max_matching_size_warm_i32
+    size = fn(_ptr(indptr, ctypes.c_int64), _ptr(indices, ctypes.c_int32),
+              n, m, _ptr(match_row, ctypes.c_int32),
+              _ptr(match_col, ctypes.c_int32), _ptr(stats, ctypes.c_int64))
+    return int(size), int(stats[0]), int(stats[1])
 
 
 def ell_to_csr_native(cols: np.ndarray, vals: np.ndarray,

@@ -4,7 +4,9 @@
 // (SURVEY.md SS3a R2/R3).  On TPU the solve loop is XLA/Pallas; the native
 // tier here accelerates the host-side pieces that sit off the device hot
 // path but on the end-to-end critical path for large instances:
-//   * Hopcroft-Karp maximum bipartite matching over CSR (feasibility check)
+//   * Hopcroft-Karp maximum bipartite matching over CSR (hopcroft_solve; the
+//     feasibility check past int32 indices)
+//   * the size of a maximum matching, Pothen-Fan+ (feasibility check)
 //   * COO -> padded-ELL layout building (ingest for ~1e7+ nnz problems)
 //   * CSR -> CSC transpose (the FR tail's column table)
 //
@@ -133,6 +135,131 @@ static int64_t hopcroft_karp_impl(const int64_t* indptr,
   return size;
 }
 
+// ---------------------------------------------------------------------------
+// Size of a maximum matching over an int32 CSR: Pothen-Fan+ (Duff, Kaya &
+// Ucar, ACM TOMS 38(2), 2011), for the feasibility pre-check, which needs
+// the size alone.  Seeded by HK's greedy pass (or a given partial
+// matching), then passes over the rows still free, one DFS a row:
+//   * lookahead: a row's pointer, kept across passes, finds a free column
+//     among its entries before the DFS descends.  A matched column stays
+//     matched, so no entry behind the pointer can turn free again;
+//   * a column is visited at most once a pass (stamped with the pass);
+//   * the DFS scans adjacency forward on odd passes, backward on even ones.
+// Stops once no row is free or a pass augments nothing.  Any maximum
+// matching has the same size, so the size equals HK's; the matching left
+// in match_row/match_col is not HK's.  stats[0] = passes, stats[1] = rows
+// matched after the seed.  Single-threaded and deterministic.
+// ---------------------------------------------------------------------------
+static int64_t max_matching_size_impl(const int64_t* indptr,
+                                      const int32_t* indices,
+                                      int64_t n, int64_t m,
+                                      int32_t* match_row, int32_t* match_col,
+                                      bool warm, int64_t* stats) {
+  std::vector<int64_t> look(n);
+  int64_t size = 0;
+  if (!warm) {
+    std::fill(match_row, match_row + n, int32_t{-1});
+    std::fill(match_col, match_col + m, int32_t{-1});
+    for (int64_t u = 0; u < n; ++u) {  // HK's greedy seed
+      int64_t k = indptr[u], end = indptr[u + 1];
+      for (; k < end; ++k) {
+        int32_t v = indices[k];
+        if (match_col[v] == -1) {
+          match_col[v] = static_cast<int32_t>(u);
+          match_row[u] = v;
+          ++size;
+          break;
+        }
+      }
+      look[u] = k < end ? k + 1 : end;  // every entry before k is matched
+    }
+  } else {
+    for (int64_t u = 0; u < n; ++u) {
+      look[u] = indptr[u];
+      if (match_row[u] >= 0) ++size;
+    }
+  }
+
+  std::vector<int32_t> free_rows;
+  for (int64_t u = 0; u < n; ++u) {
+    if (match_row[u] == -1 && indptr[u + 1] > indptr[u]) {
+      free_rows.push_back(static_cast<int32_t>(u));
+    }
+  }
+  std::vector<int32_t> stamp(m, 0), stack(n + 1);
+  std::vector<int64_t> it(n);
+  int64_t passes = 0, augmented = 0;
+
+  // One DFS from a free row; true if it augmented.
+  auto dfs = [&](int32_t root, int32_t pass, bool fwd) -> bool {
+    int64_t top = 0;
+    stack[0] = root;
+    it[root] = fwd ? indptr[root] : indptr[root + 1];
+    while (top >= 0) {
+      int32_t x = stack[top];
+      int64_t end = indptr[x + 1];
+      int64_t& la = look[x];
+      while (la < end) {
+        int32_t v = indices[la++];
+        if (match_col[v] == -1) {
+          while (top >= 0) {  // augment along the stack
+            int32_t xx = stack[top--];
+            int32_t pv = match_row[xx];
+            match_row[xx] = v;
+            match_col[v] = xx;
+            v = pv;
+          }
+          return true;
+        }
+      }
+      int32_t next = -1;
+      if (fwd) {
+        while (it[x] < end) {
+          int32_t v = indices[it[x]++];
+          if (stamp[v] != pass) {
+            stamp[v] = pass;
+            next = match_col[v];
+            break;
+          }
+        }
+      } else {
+        while (it[x] > indptr[x]) {
+          int32_t v = indices[--it[x]];
+          if (stamp[v] != pass) {
+            stamp[v] = pass;
+            next = match_col[v];
+            break;
+          }
+        }
+      }
+      if (next < 0) {
+        --top;  // dead end: every column of x visited this pass
+      } else {
+        stack[++top] = next;
+        it[next] = fwd ? indptr[next] : indptr[next + 1];
+      }
+    }
+    return false;
+  };
+
+  while (!free_rows.empty()) {
+    ++passes;
+    const int32_t pass = static_cast<int32_t>(passes);
+    const bool fwd = passes % 2 == 1;
+    size_t kept = 0;
+    for (int32_t u : free_rows) {
+      if (!dfs(u, pass, fwd)) free_rows[kept++] = u;
+    }
+    const int64_t found = static_cast<int64_t>(free_rows.size() - kept);
+    free_rows.resize(kept);
+    augmented += found;
+    if (found == 0) break;
+  }
+  stats[0] = passes;
+  stats[1] = augmented;
+  return size + augmented;
+}
+
 extern "C" {
 
 int64_t sslap_hopcroft_karp(const int64_t* indptr, const int64_t* indices,
@@ -168,6 +295,28 @@ int64_t sslap_hopcroft_karp_warm_i32(const int64_t* indptr,
                                      int32_t* match_col) {
   return hopcroft_karp_impl<int32_t>(indptr, indices, n, m, match_row,
                                      match_col, /*warm=*/true);
+}
+
+// Size of a maximum matching (n, m < 2^31); match_row[n] / match_col[m]
+// are work buffers.  stats[2] out: passes, rows augmented after the seed.
+int64_t sslap_max_matching_size_i32(const int64_t* indptr,
+                                    const int32_t* indices,
+                                    int64_t n, int64_t m,
+                                    int32_t* match_row, int32_t* match_col,
+                                    int64_t* stats) {
+  return max_matching_size_impl(indptr, indices, n, m, match_row,
+                                match_col, /*warm=*/false, stats);
+}
+
+// Warm variant: match_row/match_col carry a consistent partial matching.
+int64_t sslap_max_matching_size_warm_i32(const int64_t* indptr,
+                                         const int32_t* indices,
+                                         int64_t n, int64_t m,
+                                         int32_t* match_row,
+                                         int32_t* match_col,
+                                         int64_t* stats) {
+  return max_matching_size_impl(indptr, indices, n, m, match_row,
+                                match_col, /*warm=*/true, stats);
 }
 
 // ---------------------------------------------------------------------------
